@@ -3,28 +3,41 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (nvcc, into build/kernels/),
-checks each kernel bit for bit against its plain PyTorch version at the
-shapes of the main path, then drives the per-frame tracking program at full
-size: the KITTI-geometry stereo step and fused frame (1241x376, 2000
-features, a 4096-point local map in the 8192-slot pad) and the TUM-geometry
-mono step and fused frame (640x480, 1000 features), 20 frames each. It
-checks the inlier counts against the JAX package's counts on the same
-synthetic inputs, that both kernels ran on the main path, and that the pose
-is recovered from a perturbed prediction. Any failure exits non-zero.
+Builds the port's CUDA kernels from csrc/ (nvcc, into build/kernels/) and
+checks each one bit for bit against its plain PyTorch version on full maps
+at the shapes of the main path ([3]). Then it drives the port at full size:
 
-The last two lines are a JSON object with per-kernel launches, errors and
-times, and the device line {"ok": true, "device": {...}}. There is no CPU
-path: without a CUDA device the script fails.
+  [4]/[5] the per-frame tracking program: the KITTI-geometry stereo step and
+          fused frame (1241x376, 2000 features, a 4096-point local map in the
+          8192-slot pad) and the TUM-geometry mono step and fused frame
+          (640x480, 1000 features), checked against the JAX package's
+          inlier counts on the same inputs;
+  [6]     pose recovery from perturbed predictions;
+  [7]-[9] the tracking front end, `Tracker`, for SEQ_FRAMES frames of a
+          rendered sequence per sensor: stereo at KITTI00-02 geometry, RGB-D
+          and mono at TUM1 geometry. It prints and checks the frames
+          tracked, the frames on the fused and on the staged path, the
+          keyframes and the ATE against the rendered ground truth (held
+          against the JAX Tracker's anchors below), and the median ms per
+          fused and per staged frame.
+
+Each path is driven with the kernels' launch counts set to 0 just before it
+and read just after; a path that did not launch its kernels fails. The line
+before the last is the per-kernel JSON (launches, errors, times, bounds);
+the last is {"ok": true, "device": {...}}. There is no CPU path: without a
+CUDA device the script fails.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # Inlier counts of the JAX package (orb_slam2_detailed_comments_tpu) on
 # bench.py's own inputs, run on the CPU with ORB_DESC_ONEHOT=0 (the exact
@@ -40,6 +53,65 @@ N_FRAMES = 20
 TIMING_REPS = 50
 POSE_TOL_M, POSE_TOL_DEG = 0.01, 0.1
 PAD_SLOTS = 8192  # the production local-map pad (frontend/device_map.py)
+
+# ---- the tracker phases -----------------------------------------------------
+# Geometry of the reference's settings files (configs/KITTI00-02.yaml,
+# configs/TUM1.yaml; TUM1's distortion is left out, as the renderer is a
+# pinhole camera). The frames are tests/synthetic_world.py::PlanesWorld
+# renders along SEQ_STEP-metre sideways steps, with seeded sensor noise of
+# +-SEQ_NOISE grey levels (no two texture samples tie, so the float32 ulps
+# between XLA's and torch's pyramids do not flip BRIEF comparisons).
+# tex_scale (texture px per world unit) keeps each field of view on the
+# 2048-px texture (render_sequence checks it); the finer TUM texture gives
+# monocular initialization the matches it needs.
+SEQ_FRAMES = 30
+SEQ_STEP = 0.05
+SEQ_NOISE = 2.0
+_TUM1 = dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, bf=40.0,
+             width=640, height=480)
+TRACK_SEQS = {
+    "stereo": dict(cam=dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, bf=386.1448,
+                            width=1241, height=376),
+                   n_features=2000, fps=10.0, th_depth=35.0, tex_scale=32.0),
+    "rgbd": dict(cam=_TUM1, n_features=1000, fps=30.0, th_depth=40.0, tex_scale=48.0),
+    "mono": dict(cam=_TUM1, n_features=1000, fps=30.0, th_depth=40.0, tex_scale=48.0),
+}
+# The JAX package's Tracker on the same frames, run on the CPU with
+# ORB_FUSED_TRACK=1, ORB_DESC_ONEHOT=0, ORB_FAST_PALLAS=0 and
+# ORB_PATCH_PALLAS=0, jax 0.9.0, by `JAX_PLATFORMS=cpu python
+# tests/torch_parity.py` (jax_tracker_anchor). Limits: tracked frames exact; fused
+# frames and keyframes within TRACK_COUNT_TOL; ATE within ATE_RTOL of the
+# anchor or ATE_ATOL_M, whichever is larger (float32 sums in another order
+# on the card move poses by micrometres per frame).
+JAX_CPU_TRACKER = {
+    "stereo": dict(tracked=30, fused=28, keyframes=4, ate_m=0.011411294233990387),
+    "rgbd": dict(tracked=30, fused=28, keyframes=16, ate_m=0.004857959301703721),
+    "mono": dict(tracked=25, fused=23, keyframes=25, ate_m=0.016620162112954053),
+}
+TRACK_COUNT_TOL = 1
+ATE_RTOL, ATE_ATOL_M = 0.10, 0.002
+
+# ---- bounds: NVIDIA's H100 SXM data sheet at 700 W -----------------------------
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per output pixel of the FAST kernels: 16 ring
+# differences, 2 polarities x (16 arcs x 8 mins + 15 maxes) + 1 max, the
+# threshold, the 3x3 NMS (6 maxes, 3 compares), and the separable 7-tap
+# blur (2 x (7 multiplies + 6 adds))
+FAST_SCORE_OPS = 16 + 2 * (16 * 8 + 15) + 1 + 1
+NMS_OPS = 9
+BLUR_OPS = 2 * (7 + 6)
+
+KERNEL_SYMBOLS = {"fast_pyramid": "fast_pyramid_kernel", "fast_score_nms_raw": "fast_pyramid_kernel",
+                  "fast_score_nms": "fast_nms_kernel", "patch_gather": "patch_gather_kernel"}
+PALLAS_FAST = "orb_slam2_detailed_comments_tpu/ops/pallas_fast.py"
+CSRC = "orb_slam2_detailed_comments_tpu_torch/csrc"
+KERNELS = {  # name: (source, TPU kernels it replaces)
+    "fast_pyramid": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:528, {PALLAS_FAST}:334"),
+    "fast_score_nms_raw": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:199"),
+    "fast_score_nms": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:405"),
+    "patch_gather": (f"{CSRC}/patch_gather.cu", "orb_slam2_detailed_comments_tpu/ops/pallas_patch.py:91"),
+}
 
 
 def _smi() -> str:
@@ -66,6 +138,23 @@ def _cuda_ms(fn, reps=TIMING_REPS):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def _device_ms(fn, symbol, reps=TIMING_REPS):
+    """Device ms per launch of the CUDA kernel `symbol` over `reps` calls of
+    fn, from torch.profiler's CUPTI trace; None where the trace shows no
+    launch of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if symbol in e.key]
+    n = sum(e.count for e in evs)
+    return sum(e.device_time_total for e in evs) / 1e3 / n if n else None
+
+
 def _frame_ms(fn, n=N_FRAMES):
     """Run fn n times; host-clock ms per frame, each ending in a sync."""
     import torch
@@ -78,10 +167,134 @@ def _frame_ms(fn, n=N_FRAMES):
     return out, statistics.median(times)
 
 
-def _max_err(a, b, border=0):
-    if border:
-        a, b = a[..., border:-border, border:-border], b[..., border:-border, border:-border]
+def _max_err(a, b):
     return float((a - b).abs().max())
+
+
+def _bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float32 operations over the peak rate outside the tensor cores."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---- rendered sequences (numpy; no jax) ------------------------------------------
+
+def smooth_trajectory(n_frames, step=SEQ_STEP, yaw_amp=0.02, y_amp=0.05):
+    """World->camera poses of a sideways-dominant smooth path: a numpy copy
+    of tests/synthetic_world.py::smooth_trajectory."""
+    poses = []
+    for i in range(n_frames):
+        y = y_amp * np.sin(2 * np.pi * i / max(n_frames, 1) * 2)
+        yaw = yaw_amp * np.sin(2 * np.pi * i / max(n_frames, 1))
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], np.float32)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R
+        T[:3, 3] = -R @ np.array([step * i, y, 0.0], np.float32)
+        poses.append(T)
+    return np.stack(poses)
+
+
+def _right_pose(Tcw, baseline):
+    T_rl = np.eye(4, dtype=np.float32)
+    T_rl[0, 3] = -baseline
+    return T_rl @ Tcw
+
+
+def _check_on_texture(world, poses):
+    """Every ray of the image border must hit the texture inside its
+    wrap-around: a wrapped texture repeats features and makes false matches.
+    (Each plane's texture coordinates are affine in the hit point, so the
+    border rays bound the whole image.)"""
+    H, W = world.height, world.width
+    us = np.concatenate([np.arange(W), np.arange(W), np.zeros(H), np.full(H, W - 1)])
+    vs = np.concatenate([np.zeros(W), np.full(W, H - 1), np.arange(H), np.arange(H)])
+    d_c = np.stack([(us - world.cx) / world.fx, (vs - world.cy) / world.fy, np.ones_like(us)], -1)
+    size = world.tex.shape[0]
+    for Tcw in poses:
+        R, t = Tcw[:3, :3], Tcw[:3, 3]
+        p, lam, _ = world._intersect(-R.T @ t, (d_c @ R)[None])
+        off = np.where(p[..., 2] > (world.z_near + world.z_far) / 2, size // 2, 0)
+        tx = p[..., 0] * world.tex_scale + size // 2 + off * 0.5
+        ty = p[..., 1] * world.tex_scale + size // 2
+        if not (lam.min() > 0 and tx.min() >= 0 and tx.max() < size - 1
+                and ty.min() >= 0 and ty.max() < size - 1):
+            raise AssertionError(f"the view leaves the {size}-px texture: x {tx.min():.0f}.."
+                                 f"{tx.max():.0f}, y {ty.min():.0f}..{ty.max():.0f}")
+
+
+def render_sequence(sensor):
+    """(poses (N, 4, 4) world->camera, frames: the argument tuples of the
+    tracker's entry point without the timestamp)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "tests" / "synthetic_world.py"
+    spec = importlib.util.spec_from_file_location("synthetic_world", path)
+    synthetic_world = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic_world)
+    PlanesWorld = synthetic_world.PlanesWorld
+    c = TRACK_SEQS[sensor]["cam"]
+    world = PlanesWorld(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], width=c["width"],
+                        height=c["height"], tex_scale=TRACK_SEQS[sensor]["tex_scale"])
+    poses = smooth_trajectory(SEQ_FRAMES)
+    baseline = c["bf"] / c["fx"]
+    _check_on_texture(world, poses)
+    if sensor == "stereo":
+        _check_on_texture(world, [_right_pose(T, baseline) for T in poses])
+    rng = np.random.default_rng(0)
+
+    def noisy(img):
+        return np.clip(img + rng.uniform(-SEQ_NOISE, SEQ_NOISE, img.shape), 0, 255).astype(np.float32)
+
+    frames = []
+    for T in poses:
+        args = [noisy(world.render(T))]
+        if sensor == "stereo":
+            args.append(noisy(world.render(_right_pose(T, baseline))))
+        elif sensor == "rgbd":
+            args.append(world.render_depth(T))
+        frames.append(tuple(args))
+    return poses, frames
+
+
+def slam_config_kwargs(sensor):
+    """Keyword arguments of SlamConfig, OrbConfig and PinholeCamera (the
+    same fields in both packages) for a tracker phase."""
+    s = TRACK_SEQS[sensor]
+    return dict(camera=dict(s["cam"]), orb=dict(n_features=s["n_features"], max_keypoints=2048),
+                fps=s["fps"], th_depth=s["th_depth"])
+
+
+def drive_tracker(tracker, sensor, poses, frames, sync=lambda: None):
+    """Feed the frames to a Tracker (either package's). Returns the frames
+    tracked, the frames that took the fused path (a fused frame whose gate
+    fails finishes on the staged cascade) and the staged path (the others:
+    initialization, the first frame after it, thin-map fallbacks), the
+    keyframes, the ATE against the rendered ground truth (rigid alignment;
+    with scale for mono) and the host ms of each fused and staged frame."""
+    from orb_slam2_detailed_comments_tpu_torch.evaluation.ate import ate_rmse
+    entry = getattr(tracker, {"stereo": "track_stereo", "rgbd": "track_rgbd",
+                              "mono": "track_monocular"}[sensor])
+    fps = TRACK_SEQS[sensor]["fps"]
+    est, gt, ms_fused, ms_staged = [], [], [], []
+    for i, args in enumerate(frames):
+        n_fused = tracker.fused_frames
+        t0 = time.perf_counter()
+        Tcw = entry(*args, i / fps)
+        sync()
+        dt = 1e3 * (time.perf_counter() - t0)
+        (ms_fused if tracker.fused_frames > n_fused else ms_staged).append(dt)
+        if Tcw is not None and tracker.state.name == "OK":
+            est.append(np.linalg.inv(Tcw)[:3, 3])
+            gt.append(np.linalg.inv(poses[i])[:3, 3])
+    if len(est) < 3:
+        raise AssertionError(f"{sensor}: only {len(est)} frames tracked")
+    ate = ate_rmse(np.asarray(est, np.float64), np.asarray(gt, np.float64),
+                   with_scale=sensor == "mono")
+    return dict(tracked=len(est), fused=len(ms_fused), staged=len(ms_staged),
+                keyframes=int(tracker.map.n_keyframes()), ate_m=ate,
+                ms_fused=ms_fused, ms_staged=ms_staged)
 
 
 def main() -> int:
@@ -90,16 +303,22 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    from orb_slam2_detailed_comments_tpu_torch.frontend.tracking import Sensor, Tracker
+    from orb_slam2_detailed_comments_tpu_torch.geometry.camera import PinholeCamera
     from orb_slam2_detailed_comments_tpu_torch.geometry.se3 import exp_se3, log_se3
     from orb_slam2_detailed_comments_tpu_torch.models import slam_step as S
     from orb_slam2_detailed_comments_tpu_torch.ops import _kernels
     from orb_slam2_detailed_comments_tpu_torch.ops.fast_pyramid import (
-        fast_pyramid, fast_pyramid_plain)
+        fast_pyramid, fast_pyramid_plain, fast_score_nms, fast_score_nms_plain,
+        fast_score_nms_raw, fast_score_nms_raw_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.orb import DESC_RADIUS
     from orb_slam2_detailed_comments_tpu_torch.ops.patch_gather import (
         patch_gather, patch_gather_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.pyramid import build_pyramid, edge_pad
+    from orb_slam2_detailed_comments_tpu_torch.state.map_store import MapStore
+    from orb_slam2_detailed_comments_tpu_torch.utils.config import OrbConfig, SlamConfig
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(_smi(), flush=True)     # the card's name and power limit
 
@@ -112,11 +331,34 @@ def main() -> int:
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             print(f"    {line.strip()}")
 
+    counters = {"fast_pyramid": fast_pyramid, "fast_score_nms_raw": fast_score_nms_raw,
+                "fast_score_nms": fast_score_nms, "patch_gather": patch_gather}
+
+    def zero_counts():
+        for f in counters.values():
+            f.launches = 0
+
+    def read_counts():
+        return {k: f.launches for k, f in counters.items()}
+
     # ---- [3] kernels against their plain versions at main-path shapes ----
     (img_l, img_r, *_), orb_s, _ = S.make_stereo_inputs(device=dev)
     (img_m, *_), orb_m, _ = S.make_consistent_inputs(device=dev)
-    report = {}
-    k1 = {"max_abs_err": 0.0}
+    report = {k: {"max_abs_err": 0.0} for k in counters}
+
+    reported = {}   # name: the call at the reported shape, for the device time
+
+    def record(name, err, ms, plain_ms, n_bytes, n_ops, call):
+        if err != 0.0:
+            raise AssertionError(f"{name} differs from its plain version: {err}")
+        r = report[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "ms" not in r:   # the first shape is the reported one
+            bound_ms, bound_by = _bound(n_bytes, n_ops)
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=None)
+            reported[name] = call
+
     for tag, imgs, orb in (("stereo 2x8 lv 1241x376", torch.stack([img_l, img_r]), orb_s),
                            ("mono 1x8 lv 640x480", img_m[None], orb_m)):
         levels = [lv.contiguous() for lv in build_pyramid(imgs, orb.n_levels, orb.scale_factor)]
@@ -124,19 +366,32 @@ def main() -> int:
         got = fast_pyramid(levels, th)
         ref = fast_pyramid_plain(levels, th)
         torch.cuda.synchronize()
-        err = max(max(_max_err(g, r) for g, r in zip(got[0], ref[0])),
-                  max(_max_err(g, r, 4) for g, r in zip(got[1], ref[1])),
-                  max(_max_err(g, r) for g, r in zip(got[2], ref[2])))
-        ms = _cuda_ms(lambda: fast_pyramid(levels, th))
-        plain_ms = _cuda_ms(lambda: fast_pyramid_plain(levels, th))
-        print(f"[3] fast_pyramid {tag}: max|kernel-plain| {err} (nms, raw[4:-4], blur); "
+        err = max(_max_err(g, r) for g, r in zip(sum(got, []), sum(ref, [])))
+        kern = functools.partial(fast_pyramid, levels, th)
+        ms, plain_ms = _cuda_ms(kern), _cuda_ms(functools.partial(fast_pyramid_plain, levels, th))
+        px = sum(lv.numel() for lv in levels)
+        print(f"[3] fast_pyramid {tag}: max|kernel-plain| {err} (nms, raw, blur; full maps); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        if err != 0.0:
-            raise AssertionError(f"fast_pyramid differs from its plain version: {err}")
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        if "ms" not in k1:  # the stereo pyramid is the reported shape
-            k1.update(ms=ms, plain_ms=plain_ms)
-    report["fast_pyramid"] = k1
+        record("fast_pyramid", err, ms, plain_ms, 16 * px,
+               px * (FAST_SCORE_OPS + NMS_OPS + BLUR_OPS), kern)
+
+    for tag, img in (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous())):
+        th = float(orb_s.min_th_fast)
+        cases = [("fast_score_nms", functools.partial(fast_score_nms, img, th),
+                  functools.partial(fast_score_nms_plain, img, th), 8, FAST_SCORE_OPS + NMS_OPS)]
+        if tag == "1241x376":
+            cases.insert(0, ("fast_score_nms_raw", functools.partial(fast_score_nms_raw, img, th),
+                             functools.partial(fast_score_nms_raw_plain, img, th), 16,
+                             FAST_SCORE_OPS + NMS_OPS + BLUR_OPS))
+        for name, kern, plain, bytes_px, ops_px in cases:
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+            err = max(_max_err(g, r) for g, r in zip(got, ref))
+            ms, plain_ms = _cuda_ms(kern), _cuda_ms(plain)
+            print(f"[3] {name} {tag}: max|kernel-plain| {err} (full maps); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            record(name, err, ms, plain_ms, bytes_px * img.numel(), ops_px * img.numel(), kern)
 
     g = torch.Generator(device="cpu").manual_seed(0)
     lv0 = torch.stack([img_l, img_l])  # [raw, blur]-shaped (2, H, W) stack
@@ -145,27 +400,51 @@ def main() -> int:
     xy = torch.stack([torch.randint(-8, W + 8, (2048,), generator=g),
                       torch.randint(-8, H + 8, (2048,), generator=g)], -1).to(torch.int32).to(dev)
     pad_lr = img_l.contiguous()[None]
-    cases = (("orb 2048x(2,39,39)", padded, xy, 39, 39),
-             ("sad template 2048x11x11", pad_lr, xy, 11, 11),
-             ("sad strip 2048x11x21", pad_lr, xy, 11, 21))
-    k2 = {"max_abs_err": 0.0}
-    for tag, src, coords, ph, pw in cases:
+    for tag, src, coords, ph, pw in (("orb 2048x(2,39,39)", padded, xy, 39, 39),
+                                     ("sad template 2048x11x11", pad_lr, xy, 11, 11),
+                                     ("sad strip 2048x11x21", pad_lr, xy, 11, 21)):
         got = patch_gather(src, coords, ph, pw)
         ref = patch_gather_plain(src, coords, ph, pw)
         torch.cuda.synchronize()
         err = _max_err(got, ref)
-        ms = _cuda_ms(lambda: patch_gather(src, coords, ph, pw))
-        plain_ms = _cuda_ms(lambda: patch_gather_plain(src, coords, ph, pw))
+        kern = functools.partial(patch_gather, src, coords, ph, pw)
+        ms = _cuda_ms(kern)
+        plain_ms = _cuda_ms(functools.partial(patch_gather_plain, src, coords, ph, pw))
         print(f"[3] patch_gather {tag}: max|kernel-plain| {err}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        if err != 0.0:
-            raise AssertionError(f"patch_gather differs from its plain version: {err}")
-        k2["max_abs_err"] = max(k2["max_abs_err"], err)
-        if "ms" not in k2:  # the ORB patch shape is the reported one
-            k2.update(ms=ms, plain_ms=plain_ms)
-    report["patch_gather"] = k2
+        record("patch_gather", err, ms, plain_ms,
+               4 * (src.numel() + coords.numel() + got.numel()), 0, kern)
 
-    # ---- [4]/[5] the main path at full size ----
+    dev_ms = {name: _device_ms(call, KERNEL_SYMBOLS[name]) for name, call in reported.items()}
+    print("[3] device ms per launch at the reported shapes (torch.profiler, "
+          f"{TIMING_REPS} launches): " + ", ".join(
+              f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in dev_ms.items()),
+          flush=True)
+
+    # K4 and K5 are on no path of the system: their drive is one call of
+    # each public function per phase-[3] shape, and those calls' outputs are
+    # the ones held against the plain versions
+    zero_counts()
+    side = {}
+    for tag, img in (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous())):
+        th = float(orb_s.min_th_fast)
+        if tag == "1241x376":
+            side["raw"] = (img, fast_score_nms_raw(img, th))
+        side[tag] = (img, fast_score_nms(img, th))
+    launches = read_counts()
+    torch.cuda.synchronize()
+    for key, (img, got) in side.items():
+        plain = fast_score_nms_raw_plain if key == "raw" else fast_score_nms_plain
+        got, ref = (got, plain(img, th)) if key == "raw" else ((got,), (plain(img, th),))
+        if max(_max_err(a, b) for a, b in zip(got, ref)) != 0.0:
+            raise AssertionError(f"the driven K4/K5 call {key} differs from its plain version")
+    print(f"[3] K4/K5 drive launches {launches}", flush=True)
+    if not (launches["fast_score_nms_raw"] == 1 and launches["fast_score_nms"] == 2):
+        raise AssertionError("the K4/K5 drive did not launch its kernels")
+    path_launches = {"fast_score_nms_raw": launches["fast_score_nms_raw"],
+                     "fast_score_nms": launches["fast_score_nms"]}
+
+    # ---- [4]/[5] the per-frame tracking program at full size ----
     def pad_map(pos, normal, mind, maxd, desc, valid):
         n = pos.shape[0]
         packed = torch.zeros((PAD_SLOTS, 8), dtype=torch.float32, device=dev)
@@ -188,28 +467,34 @@ def main() -> int:
             raise AssertionError(f"{name}: non-finite pose")
         return Tcw
 
-    def check_launched(name, before):
-        if not (fast_pyramid.launches > before[0] and patch_gather.launches > before[1]):
+    def check_path(name):
+        """The launch counts of the path just driven; both path kernels
+        must have run."""
+        n = read_counts()
+        print(f"    {name} path launches {n}", flush=True)
+        if not (n["fast_pyramid"] > 0 and n["patch_gather"] > 0):
             raise AssertionError(f"the {name} path did not launch both kernels")
+        return n
 
     s_args, orb_s, cam_s = S.make_stereo_inputs(device=dev)
     img_l, img_r, Tcw_s, *s_map = s_args
     s_pad = pad_map(*s_map)
     pair = torch.stack([img_l, img_r])
-    th_depth = 40.0 * cam_s.baseline    # ThDepth 40 x baseline (KITTI00-02.yaml)
+    th_depth = 40.0 * cam_s.baseline
     m_args, orb_m, cam_m = S.make_consistent_inputs(device=dev)
     img_m, Tcw_m, *m_map = m_args
     m_pad = pad_map(*m_map)
 
-    fast_pyramid.launches = 0
-    patch_gather.launches = 0
     ms = {}
+    zero_counts()
     out, ms["stereo_tracking_step"] = _frame_ms(
         lambda: S.stereo_tracking_step(*s_args, orb=orb_s, cam=cam_s))
     check_pose("stereo_tracking_step", out[0])
     print(f"[4] stereo_tracking_step 1241x376: {ms['stereo_tracking_step']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("stereo_tracking_step", int(out[3]))
+    check_path("stereo_tracking_step")
+    zero_counts()
     (blob, _), ms["fused_stereo_frame"] = _frame_ms(lambda: S.fused_stereo_frame(
         pair, Tcw_s, *s_pad, orb=orb_s, cam=cam_s, th_depth=th_depth))
     ts = S.unpack_host_blob(blob, orb_s.max_keypoints)[1]
@@ -217,15 +502,17 @@ def main() -> int:
     print(f"[4] fused_stereo_frame 1241x376: {ms['fused_stereo_frame']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("fused_stereo_frame", int(ts[16]))
-    check_launched("stereo", (0, 0))
+    check_path("fused_stereo_frame")
 
-    before = (fast_pyramid.launches, patch_gather.launches)
+    zero_counts()
     out, ms["mono_tracking_step"] = _frame_ms(
         lambda: S.mono_tracking_step(*m_args, orb=orb_m, cam=cam_m))
     check_pose("mono_tracking_step", out[0])
     print(f"[5] mono_tracking_step 640x480: {ms['mono_tracking_step']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("mono_tracking_step", int(out[3]))
+    check_path("mono_tracking_step")
+    zero_counts()
     (blob, _), ms["fused_mono_frame"] = _frame_ms(lambda: S.fused_mono_frame(
         img_m, Tcw_m, *m_pad, orb=orb_m, cam=cam_m))
     ts = S.unpack_host_blob(blob, orb_m.max_keypoints)[1]
@@ -233,9 +520,7 @@ def main() -> int:
     print(f"[5] fused_mono_frame 640x480: {ms['fused_mono_frame']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("fused_mono_frame", int(ts[16]))
-    check_launched("mono", before)
-    launches = {"fast_pyramid": fast_pyramid.launches, "patch_gather": patch_gather.launches}
-    print(f"    main-path launches {launches}", flush=True)
+    check_path("fused_mono_frame")
 
     # ---- [6] pose recovery from a perturbed prediction (stereo frame) ----
     deltas = ((0.05, 0.0, 0.0, 0.0, 0.0, 0.0),           # 5 cm sideways: ~1.9 px
@@ -253,15 +538,56 @@ def main() -> int:
         if not (err_t < POSE_TOL_M and err_r < POSE_TOL_DEG):
             raise AssertionError(f"pose not recovered from delta {delta}")
 
-    src = {"fast_pyramid": ("orb_slam2_detailed_comments_tpu_torch/csrc/fast_pyramid.cu",
-                            "orb_slam2_detailed_comments_tpu/ops/pallas_fast.py:528"),
-           "patch_gather": ("orb_slam2_detailed_comments_tpu_torch/csrc/patch_gather.cu",
-                            "orb_slam2_detailed_comments_tpu/ops/pallas_patch.py:91")}
+    # ---- [7]-[9] the tracking front end, Tracker, per sensor ----
+    path_launches.update(fast_pyramid=0, patch_gather=0)
+    sensors = {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD, "mono": Sensor.MONOCULAR}
+    for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=7):
+        t0 = time.perf_counter()
+        poses, frames = render_sequence(sensor)
+        kw = slam_config_kwargs(sensor)
+        cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
+                         fps=kw["fps"], th_depth=kw["th_depth"])
+        c = kw["camera"]
+        print(f"[{phase}] {sensor} {c['width']}x{c['height']}, {kw['orb']['n_features']} "
+              f"features, {SEQ_FRAMES} frames rendered in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        tracker = Tracker(cfg, MapStore(cfg), sensors[sensor], device=dev)
+        zero_counts()
+        res = drive_tracker(tracker, sensor, poses, frames, sync=torch.cuda.synchronize)
+        n = check_path(f"Tracker {sensor}")
+        path_launches["fast_pyramid"] += n["fast_pyramid"]
+        path_launches["patch_gather"] += n["patch_gather"]
+        ref = JAX_CPU_TRACKER[sensor]
+        med = {k: (f"{statistics.median(res[k]):.3f}" if res[k] else "none")
+               for k in ("ms_fused", "ms_staged")}
+        print(f"[{phase}] {sensor}: tracked {res['tracked']}/{SEQ_FRAMES} (JAX {ref['tracked']}), "
+              f"fused {res['fused']} (JAX {ref['fused']}), staged {res['staged']}, "
+              f"keyframes {res['keyframes']} (JAX {ref['keyframes']}), "
+              f"ATE {1e3 * res['ate_m']:.3f} mm (JAX {1e3 * ref['ate_m']:.3f} mm); "
+              f"median ms per fused frame {med['ms_fused']} ({len(res['ms_fused'])}), "
+              f"per staged frame {med['ms_staged']} ({len(res['ms_staged'])})", flush=True)
+        stages = tracker.timer.summary()
+        print(f"[{phase}] {sensor} host stages, median ms (count): " + ", ".join(
+            f"{k} {v['median_ms']:.3f} ({v['count']})" for k, v in sorted(stages.items())),
+            flush=True)
+        if res["tracked"] != ref["tracked"]:
+            raise AssertionError(f"{sensor}: {res['tracked']} frames tracked, JAX {ref['tracked']}")
+        for k in ("fused", "keyframes"):
+            if abs(res[k] - ref[k]) > TRACK_COUNT_TOL:
+                raise AssertionError(f"{sensor}: {k} {res[k]}, JAX {ref[k]}")
+        if abs(res["ate_m"] - ref["ate_m"]) > max(ATE_RTOL * ref["ate_m"], ATE_ATOL_M):
+            raise AssertionError(f"{sensor}: ATE {res['ate_m']} m, JAX {ref['ate_m']} m")
+        if sensor != "mono" and res["fused"] == 0:
+            raise AssertionError(f"{sensor}: the fused path never ran")
+    print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
-         "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
-         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-        for name in ("fast_pyramid", "patch_gather")]}))
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": path_launches[name],
+         **{k: report[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

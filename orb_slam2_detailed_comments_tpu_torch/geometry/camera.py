@@ -28,7 +28,7 @@ class PinholeCamera(NamedTuple):
     width: int = 640
     height: int = 480
 
-    def K(self, device="cpu"):
+    def K(self, device="cuda"):
         """(3, 3) float32 intrinsic matrix on `device`."""
         return torch.tensor(
             [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],

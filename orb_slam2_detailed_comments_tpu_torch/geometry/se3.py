@@ -12,7 +12,7 @@ from .so3 import (exp_so3, log_so3, left_jacobian_so3, left_jacobian_inv_so3,
                   quat_to_rotmat, rotmat_to_quat)
 
 
-def se3_identity(dtype=torch.float32, device="cpu"):
+def se3_identity(dtype=torch.float32, device="cuda"):
     return torch.eye(4, dtype=dtype, device=device)
 
 

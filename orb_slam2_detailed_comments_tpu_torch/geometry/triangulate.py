@@ -1,0 +1,44 @@
+"""Batched two-view triangulation.
+
+Counterpart of orb_slam2_detailed_comments_tpu/geometry/triangulate.py (the
+replacement of the reference's per-point SVD triangulation, reference:
+src/Initializer.cc Triangulate; src/LocalMapping.cc:516-530).
+"""
+from __future__ import annotations
+
+import torch
+
+
+def triangulate_dlt(P1, P2, uv1, uv2):
+    """DLT triangulation.
+
+    Args:
+      P1, P2: (3, 4) or (..., 3, 4) projection matrices (K [R|t]).
+      uv1, uv2: (..., 2) pixel observations in each view.
+
+    Returns:
+      (..., 3) world points (homogeneous-normalized).
+
+    The rows u*P[2]-P[0], v*P[2]-P[1] of each view form A x = 0; the
+    solution is the eigenvector of the 4x4 A^T A with the smallest
+    eigenvalue (torch.linalg.eigh, ascending). Its sign is arbitrary, and
+    the division by w removes it.
+    """
+    P1 = P1.expand(uv1.shape[:-1] + (3, 4))
+    P2 = P2.expand(uv2.shape[:-1] + (3, 4))
+    rows = [
+        uv1[..., 0:1] * P1[..., 2, :] - P1[..., 0, :],
+        uv1[..., 1:2] * P1[..., 2, :] - P1[..., 1, :],
+        uv2[..., 0:1] * P2[..., 2, :] - P2[..., 0, :],
+        uv2[..., 1:2] * P2[..., 2, :] - P2[..., 1, :],
+    ]
+    A = torch.stack(rows, dim=-2)  # (..., 4, 4)
+    # row-normalize for conditioning
+    A = A / (torch.linalg.norm(A, dim=-1, keepdim=True) + 1e-12)
+    AtA = A.transpose(-1, -2) @ A
+    _, vecs = torch.linalg.eigh(AtA)
+    x = vecs[..., :, 0]  # smallest eigenvalue's eigenvector
+    w = x[..., 3]
+    w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return x[..., :3] / w[..., None]
+

@@ -3,8 +3,9 @@
 `state_from_jax` turns the JAX package's tracking state, handed over as
 numpy arrays (np.asarray of its jax arrays) and its config objects, into
 the port's tensors and config objects on a given device, so both packages
-can compute on the same local map. Nothing here imports jax: the config
-objects are read by field name.
+can compute on the same local map. `map_store_from_jax` copies a JAX
+MapStore (host numpy state) into the port's, so both trackers can start
+from one map. Nothing here imports jax: objects are read by field name.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from .geometry.camera import PinholeCamera
-from .utils.config import OrbConfig
+from .utils.config import OrbConfig, SlamConfig
 
 
 class TrackingState(NamedTuple):
@@ -26,7 +27,7 @@ class TrackingState(NamedTuple):
     cam: PinholeCamera
 
 
-def desc_to_torch(desc, device="cpu"):
+def desc_to_torch(desc, device="cuda"):
     """(..., 8) uint32 descriptor words -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(np.asarray(desc, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
@@ -44,7 +45,7 @@ def config_from_jax(orb, cam):
     return orb_t, cam_t
 
 
-def state_from_jax(Tcw, packed, mp_desc, mp_valid, orb, cam, device="cpu") -> TrackingState:
+def state_from_jax(Tcw, packed, mp_desc, mp_valid, orb, cam, device="cuda") -> TrackingState:
     """Numpy arrays of the JAX package's pose and local-map pad (as
     frontend/device_map.py packs it) plus its configs -> TrackingState."""
     def f32(a):
@@ -58,3 +59,26 @@ def state_from_jax(Tcw, packed, mp_desc, mp_valid, orb, cam, device="cpu") -> Tr
         Tcw=f32(Tcw), packed=packed, mp_desc=desc_to_torch(mp_desc, device),
         mp_valid=torch.from_numpy(np.array(mp_valid, dtype=bool)).to(device),
         orb=orb_t, cam=cam_t)
+
+
+def slam_config_from_jax(cfg) -> SlamConfig:
+    """The JAX package's SlamConfig -> the port's, field by field."""
+    orb, cam = config_from_jax(cfg.orb, cfg.camera)
+    fields = {f: getattr(cfg, f) for f in SlamConfig.__dataclass_fields__}
+    return SlamConfig(**{**fields, "orb": orb, "camera": cam})
+
+
+def map_store_from_jax(ms):
+    """A JAX MapStore -> the port's MapStore holding copies of all its
+    state: every array, counter, free list and loop edge."""
+    from .state.map_store import MapStore   # state/ imports this module
+    out = MapStore(slam_config_from_jax(ms.config))
+    for name, v in vars(ms).items():
+        if name == "config":
+            continue
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif isinstance(v, (list, set, dict)):
+            v = type(v)(v)
+        setattr(out, name, v)
+    return out

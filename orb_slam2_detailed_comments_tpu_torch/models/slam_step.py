@@ -254,7 +254,7 @@ def _map_tensors(device, pos, dists, kp, idx):
                 kp.valid[torch.from_numpy(idx).to(kp.valid.device)].to(device)]
 
 
-def make_consistent_inputs(seed=0, device="cpu"):
+def make_consistent_inputs(seed=0, device="cuda"):
     """bench.py::make_consistent_inputs: a 640x480 frame of squares on a
     flat background, 1000 features, and a LOCAL_MP_CAP-point map placed at
     random depths along the frame's keypoint rays. Returns ((img, Tcw, pos,
@@ -280,7 +280,7 @@ def make_consistent_inputs(seed=0, device="cpu"):
     return (img_t, Tcw, *mp), orb, cam
 
 
-def make_stereo_inputs(seed=0, device="cpu"):
+def make_stereo_inputs(seed=0, device="cuda"):
     """bench.py::make_stereo_inputs: a KITTI-geometry (1241x376) stereo pair
     whose right image is the left shifted by the disparity of a constant
     19.3 m depth, 2000 features, and a LOCAL_MP_CAP-point map at that depth.

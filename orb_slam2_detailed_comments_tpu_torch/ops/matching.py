@@ -1,13 +1,17 @@
 """Projection-guided descriptor matching.
 
 Counterpart of the part of orb_slam2_detailed_comments_tpu/ops/matching.py
-that the per-frame tracking program runs (the replacement of
-ORBmatcher::SearchByProjection, reference: src/ORBmatcher.cc:69-184): the
-full masked Hamming matrix, every candidate policy expressed as a boolean
-mask, best/second-best with the ratio test, and one source per target.
+that the tracking front end runs: the replacements of
+ORBmatcher::SearchByProjection (reference: src/ORBmatcher.cc:69-184), of
+SearchByBoW's role (brute-force matching, :248-419) and of
+SearchForInitialization (:570-722). The full masked Hamming matrix, every
+candidate policy expressed as a boolean mask, best/second-best with the
+ratio test, the rotation histogram, and one source per target. Ties go to
+the lower index, as jnp.argmin and lax.top_k break them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -15,7 +19,9 @@ import torch
 from .hamming import hamming_distance_matrix
 
 INF_DIST = 1 << 20
+TH_LOW = 50     # reference: ORBmatcher.cc:49
 TH_HIGH = 100   # reference: ORBmatcher.cc:50
+HISTO_BINS = 30  # reference: ORBmatcher.cc:51
 
 
 class MatchResult(NamedTuple):
@@ -67,6 +73,60 @@ def resolve_duplicate_targets(match: MatchResult, n_targets: int):
     return MatchResult(idx=match.idx, dist=match.dist, ok=keep)
 
 
+def rotation_consistency(angle_a, angle_b_of_match, ok, top_k: int = 3):
+    """Rotation-histogram filter (reference: ORBmatcher::ComputeThreeMaxima,
+    ORBmatcher.cc:2026-2068): keep only matches whose angle difference falls
+    in the top-3 most-populated of 30 bins; bins 2-3 are dropped when they
+    hold < 10% of the max bin. Equal bins rank by lower index (a stable
+    descending sort), as lax.top_k ranks them."""
+    two_pi = 2.0 * math.pi
+    diff = torch.remainder(angle_a - angle_b_of_match, two_pi)
+    bins = torch.clamp((diff * (HISTO_BINS / two_pi)).to(torch.int32), 0, HISTO_BINS - 1).long()
+    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=bins.device)
+    hist = hist.index_add(0, bins, ok.to(torch.int32))
+    top_vals, top_idx = torch.sort(hist, descending=True, stable=True)
+    keep_bin = torch.zeros(HISTO_BINS, dtype=torch.bool, device=bins.device)
+    keep_bin[top_idx[0]] = True
+    for i in range(1, top_k):
+        keep_bin[top_idx[i]] = (top_vals[i].to(torch.float32)
+                                >= 0.1 * top_vals[0].to(torch.float32))
+    return ok & keep_bin[bins]
+
+
+def match_descriptors(desc_a, valid_a, desc_b, valid_b, angle_a=None, angle_b=None,
+                      max_dist: int = TH_LOW, ratio: float = 0.75):
+    """Generic all-pairs matcher A->B with ratio + rotation filters (the
+    rotation filter where both angle sets are given). Returns MatchResult
+    over A (deduplicated per target in B)."""
+    dist = hamming_distance_matrix(desc_a, desc_b)
+    mask = valid_a[:, None] & valid_b[None, :]
+    m = masked_best_match(dist, mask, max_dist, ratio)
+    if angle_a is not None and angle_b is not None:
+        m = MatchResult(m.idx, m.dist,
+                        rotation_consistency(angle_a, angle_b[m.idx.long()], m.ok))
+    return resolve_duplicate_targets(m, desc_b.shape[0])
+
+
+def search_for_initialization(xy_a, desc_a, valid_a, octave_a, angle_a,
+                              xy_b, desc_b, valid_b, octave_b, angle_b,
+                              window: float = 100.0, ratio: float = 0.9):
+    """Windowed level-0 matching for monocular initialization
+    (reference: ORBmatcher::SearchForInitialization, ORBmatcher.cc:570-722:
+    radius-100 window around the level-0 keypoints, ratio 0.9, TH_LOW,
+    rotation check)."""
+    du = torch.abs(xy_a[:, None, 0] - xy_b[None, :, 0])
+    dv = torch.abs(xy_a[:, None, 1] - xy_b[None, :, 1])
+    mask = (
+        valid_a[:, None] & valid_b[None, :]
+        & (octave_a[:, None] == 0) & (octave_b[None, :] == 0)
+        & (du <= window) & (dv <= window)
+    )
+    dist = hamming_distance_matrix(desc_a, desc_b)
+    m = masked_best_match(dist, mask, TH_LOW, ratio)
+    m = MatchResult(m.idx, m.dist, rotation_consistency(angle_a, angle_b[m.idx.long()], m.ok))
+    return resolve_duplicate_targets(m, desc_b.shape[0])
+
+
 def predict_scale_level(dist, max_dist, n_levels: int, log_scale: float):
     """MapPoint::PredictScale (reference: src/MapPoint.cc:676-721):
     level = ceil(log(max_dist / dist) / log(scaleFactor)), clipped."""
@@ -85,9 +145,10 @@ class ProjectedPoints(NamedTuple):
 
 
 def project_and_cull(pts_w, valid, normals, min_dist, max_dist, Tcw, cam,
-                     n_levels: int, log_scale: float):
+                     n_levels: int, log_scale: float, view_cos_limit: float = 0.5):
     """Frame::isInFrustum for a batch of map points
-    (reference: src/Frame.cc:529-620; viewing angle under 60 degrees)."""
+    (reference: src/Frame.cc:529-620; by default the viewing angle must be
+    under 60 degrees, view_cos_limit=0.5)."""
     R = Tcw[:3, :3]
     t = Tcw[:3, 3]
     pc = pts_w @ R.T + t
@@ -106,7 +167,7 @@ def project_and_cull(pts_w, valid, normals, min_dist, max_dist, Tcw, cam,
         & (uv[:, 0] >= 0.0) & (uv[:, 0] < cam.width)
         & (uv[:, 1] >= 0.0) & (uv[:, 1] < cam.height)
         & (dist >= 0.8 * min_dist) & (dist <= 1.2 * max_dist)
-        & (view_cos > 0.5)
+        & (view_cos > view_cos_limit)
     )
     lvl = predict_scale_level(dist, max_dist, n_levels, log_scale)
     return ProjectedPoints(uv=uv, ur=ur, depth=z, pred_level=lvl,

@@ -121,16 +121,19 @@ def _fused_level_angles_descriptors(raw_img, blurred_img, xy, valid):
     return ang, desc
 
 
-def extract_orb(img, config: OrbConfig) -> Keypoints:
+def extract_orb(img, config: OrbConfig, n_features: int = 0) -> Keypoints:
     """Extract ORB features from a (H, W) float32 grayscale image in
-    [0, 255]; capacity config.max_keypoints (padded, masked)."""
-    return Keypoints(*[a[0] for a in extract_orb_batch(img[None], config)])
+    [0, 255]; capacity config.max_keypoints (padded, masked). `n_features`
+    overrides config.n_features when nonzero (the reference doubles the
+    budget during monocular initialization, Tracking.cc:180-182)."""
+    return Keypoints(*[a[0] for a in extract_orb_batch(img[None], config, n_features)])
 
 
-def extract_orb_batch(imgs, config: OrbConfig) -> Keypoints:
+def extract_orb_batch(imgs, config: OrbConfig, n_features: int = 0) -> Keypoints:
     """Batched extraction over a leading image axis: (B, H, W) -> Keypoints
     with (B, ...) leading dims. The stereo frontend feeds the L/R pair as
-    B=2 (the reference runs two extraction threads, Frame.cc:158-164)."""
+    B=2 (the reference runs two extraction threads, Frame.cc:158-164).
+    `n_features` as in extract_orb."""
     imgs = imgs.to(torch.float32)
     B, H0, W0 = imgs.shape
     dev = imgs.device
@@ -138,7 +141,7 @@ def extract_orb_batch(imgs, config: OrbConfig) -> Keypoints:
     min_border = config.edge_threshold - 3  # reference: ORBextractor.cc:1430
 
     levels = [lv.contiguous() for lv in build_pyramid(imgs, n_levels, config.scale_factor)]
-    budgets = features_per_level(config.n_features, n_levels, config.scale_factor)
+    budgets = features_per_level(n_features or config.n_features, n_levels, config.scale_factor)
     shapes = pyramid_shapes(H0, W0, n_levels, config.scale_factor)
     nms_all, raw_all, blur_all = fast_pyramid(levels, float(config.min_th_fast))
 

@@ -29,7 +29,7 @@ def _gauss_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return k.astype(np.float32)
 
 
-def reflect101_index(n: int, r: int, device="cpu"):
+def reflect101_index(n: int, r: int, device):
     """Source indices of a length-n axis padded by r on each side with
     BORDER_REFLECT_101 (numpy/jnp pad mode "reflect")."""
     i = torch.arange(-r, n + r, device=device)

@@ -102,6 +102,7 @@ def test_fast_maps_match_xla(kind):
     for lv, n, r, b in zip(levels, nms, raw, blur):
         nj, rj = xla(jnp.asarray(lv))
         np.testing.assert_array_equal(n[0].numpy(), np.asarray(nj))
+        # XLA's ring wraps at the edge (jnp.roll), the kernels' reflects
         np.testing.assert_array_equal(r[0].numpy()[4:-4, 4:-4], np.asarray(rj)[4:-4, 4:-4])
         # op by op (not jitted): a fused XLA blur contracts multiply-adds
         np.testing.assert_allclose(b[0].numpy(), np.asarray(JP.gaussian_blur(jnp.asarray(lv))),
@@ -118,8 +119,7 @@ def test_fast_maps_match_pallas_roll_interpret():
                                               shapes, 7.0, interpret=True)
         for i in range(3):
             np.testing.assert_array_equal(nms[i][b].numpy(), np.asarray(nj[i]))
-            np.testing.assert_array_equal(raw[i][b].numpy()[4:-4, 4:-4],
-                                          np.asarray(rj[i])[4:-4, 4:-4])
+            np.testing.assert_array_equal(raw[i][b].numpy(), np.asarray(rj[i]))
             assert np.abs(blur[i][b].numpy() - np.asarray(bj[i])).max() < 1e-3
 
 
@@ -158,7 +158,7 @@ def test_hamming_matches_jax():
     a = rng.integers(0, 2 ** 32, (70, 8), dtype=np.uint32)
     b = rng.integers(0, 2 ** 32, (90, 8), dtype=np.uint32)
     b[:10] = a[:10]
-    ta, tb = desc_to_torch(a), desc_to_torch(b)
+    ta, tb = desc_to_torch(a, "cpu"), desc_to_torch(b, "cpu")
     np.testing.assert_array_equal(TH.hamming_distance_matrix(ta, tb).numpy(),
                                   np.asarray(JH.hamming_distance_matrix(jnp.asarray(a), jnp.asarray(b))))
     np.testing.assert_array_equal(TH.hamming_distance_pairs(ta[:10], tb[:10]).numpy(), 0)
@@ -266,8 +266,8 @@ def test_search_by_projection_matches_jax(check_stereo):
                                  jnp.asarray(m["kp_ur"]), jnp.asarray(m["desc_k"]),
                                  jnp.asarray(m["kp_valid"]), jnp.asarray(m["octave"]),
                                  jnp.asarray(sf), th=3.0, check_stereo=check_stereo)
-    mt = TM.search_by_projection(pt, desc_to_torch(m["desc_p"]), t(m["kp_xy"]), t(m["kp_ur"]),
-                                 desc_to_torch(m["desc_k"]), t(m["kp_valid"]), t(m["octave"]),
+    mt = TM.search_by_projection(pt, desc_to_torch(m["desc_p"], "cpu"), t(m["kp_xy"]), t(m["kp_ur"]),
+                                 desc_to_torch(m["desc_k"], "cpu"), t(m["kp_valid"]), t(m["octave"]),
                                  t(sf), th=3.0, check_stereo=check_stereo)
     np.testing.assert_array_equal(mt.ok.numpy(), np.asarray(mj.ok))
     ok = np.asarray(mj.ok)
@@ -328,7 +328,7 @@ def test_stereo_match_matches_jax():
                                cam, orb)
 
     def to_t(kp):
-        return TO.Keypoints(*(t(np.asarray(a)) for a in kp[:4]), desc_to_torch(kp[4]),
+        return TO.Keypoints(*(t(np.asarray(a)) for a in kp[:4]), desc_to_torch(kp[4], "cpu"),
                             t(np.asarray(kp[5])))
 
     torb, tcam = config_from_jax(orb, cam)
@@ -366,7 +366,7 @@ def test_se3_and_camera_match_jax():
     d = rng.uniform(1, 10, 100).astype(np.float32)
     np.testing.assert_allclose(tcam.backproject(t(uv), t(d)).numpy(),
                                np.asarray(cam.backproject(jnp.asarray(uv), jnp.asarray(d))), atol=1e-5)
-    np.testing.assert_array_equal(tcam.K().numpy(), np.asarray(cam.K))
+    np.testing.assert_array_equal(tcam.K("cpu").numpy(), np.asarray(cam.K))
 
 
 def test_se3_so3_helpers_match_jax():
@@ -380,7 +380,7 @@ def test_se3_so3_helpers_match_jax():
         (TSE3.se3_apply(t(A), t(p)), JSE3.se3_apply(jnp.asarray(A), jnp.asarray(p))),
         (TSE3.se3_rotation(t(A)), JSE3.se3_rotation(jnp.asarray(A))),
         (TSE3.se3_translation(t(A)), JSE3.se3_translation(jnp.asarray(A))),
-        (TSE3.se3_identity(), JSE3.se3_identity()),
+        (TSE3.se3_identity(device="cpu"), JSE3.se3_identity()),
     ]
     w = rng.normal(0, 1, (30, 3)).astype(np.float32)
     pairs += [(f(t(w)), g(jnp.asarray(w))) for f, g in (

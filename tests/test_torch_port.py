@@ -19,7 +19,9 @@ import torch
 
 from orb_slam2_detailed_comments_tpu_torch.interop import desc_to_numpy, state_from_jax
 from orb_slam2_detailed_comments_tpu_torch.models.slam_step import match_to_kp
-from orb_slam2_detailed_comments_tpu_torch.ops.fast_pyramid import fast_pyramid, fast_pyramid_plain
+from orb_slam2_detailed_comments_tpu_torch.ops.fast_pyramid import (
+    fast_pyramid, fast_pyramid_plain, fast_score_nms, fast_score_nms_plain, fast_score_nms_raw,
+    fast_score_nms_raw_plain)
 from orb_slam2_detailed_comments_tpu_torch.ops.matching import MatchResult
 from orb_slam2_detailed_comments_tpu_torch.ops.patch_gather import patch_gather, patch_gather_plain
 from orb_slam2_detailed_comments_tpu_torch.ops.pyramid import build_pyramid
@@ -139,14 +141,14 @@ def test_state_from_jax_carries_bits_and_configs():
     packed = rng.normal(size=(16, 8)).astype(np.float32)
     orb = OrbConfig(n_features=123, n_levels=5)
     cam = PinholeCamera(fx=1.0, fy=2.0, cx=3.0, cy=4.0, k1=0.1, bf=5.0, width=7, height=8)
-    st = state_from_jax(np.eye(4), packed, desc, np.arange(16) % 2 == 0, orb, cam)
+    st = state_from_jax(np.eye(4), packed, desc, np.arange(16) % 2 == 0, orb, cam, device="cpu")
     assert st.mp_desc.dtype == torch.int32
     np.testing.assert_array_equal(desc_to_numpy(st.mp_desc), desc)
     np.testing.assert_array_equal(st.packed.numpy(), packed)
     assert st.orb.n_features == 123 and st.orb.n_levels == 5
     assert tuple(st.cam) == tuple(cam) and st.Tcw.dtype == torch.float32
     with pytest.raises(ValueError):
-        state_from_jax(np.eye(4), packed[:, :7], desc, np.ones(16, bool), orb, cam)
+        state_from_jax(np.eye(4), packed[:, :7], desc, np.ones(16, bool), orb, cam, device="cpu")
 
 
 def _need_cuda():
@@ -164,10 +166,8 @@ def test_fast_pyramid_kernel_matches_plain_on_card():
     ref = fast_pyramid_plain(levels, 7.0)
     torch.cuda.synchronize()
     assert fast_pyramid.launches == before + 1
-    for g, r in zip(got[0] + got[2], ref[0] + ref[2]):
+    for g, r in zip(got[0] + got[1] + got[2], ref[0] + ref[1] + ref[2]):
         assert torch.equal(g, r)
-    for g, r in zip(got[1], ref[1]):
-        assert torch.equal(g[..., 4:-4, 4:-4], r[..., 4:-4, 4:-4])
 
 
 @pytest.mark.cuda
@@ -181,3 +181,15 @@ def test_patch_gather_kernel_matches_plain_on_card():
         assert torch.equal(patch_gather(src[0], xy[0], ph, pw),
                            patch_gather_plain(src[0], xy[0], ph, pw))
     assert patch_gather.launches == before + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 80), (97, 131)])
+def test_k4_k5_kernels_match_plain_on_card(shape):
+    dev = _need_cuda()
+    img = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, shape).astype(np.float32)).to(dev)
+    before = (fast_score_nms_raw.launches, fast_score_nms.launches)
+    for g, r in zip(fast_score_nms_raw(img, 7.0), fast_score_nms_raw_plain(img, 7.0)):
+        assert torch.equal(g, r)
+    assert torch.equal(fast_score_nms(img, 7.0), fast_score_nms_plain(img, 7.0))
+    assert (fast_score_nms_raw.launches, fast_score_nms.launches) == (before[0] + 1, before[1] + 1)

@@ -36,7 +36,8 @@ def world():
 def _state(world):
     arrs, orb, cam = world
     Tcw = perturbed_pose()
-    return Tcw, state_from_jax(Tcw, arrs["packed"], arrs["desc"], arrs["valid"], orb, cam)
+    return Tcw, state_from_jax(Tcw, arrs["packed"], arrs["desc"], arrs["valid"], orb, cam,
+                               device="cpu")
 
 
 def _assert_inliers(n_jax, n_torch):

@@ -108,3 +108,46 @@ def perturbed_pose(delta=(0.01, -0.005, 0.02, 0.002, -0.001, 0.0015)):
     import torch
     from orb_slam2_detailed_comments_tpu_torch.geometry.se3 import exp_se3
     return exp_se3(torch.tensor(delta, dtype=torch.float64)).float().numpy()
+
+
+def jax_tracker_anchor(sensor):
+    """The JAX package's Tracker on chip_smoke.py's rendered full-size
+    sequence for `sensor` ("stereo", "rgbd" or "mono"), with the fused path
+    on (ORB_FUSED_TRACK=1) in the exact modes: the source of chip_smoke.py's
+    JAX_CPU_TRACKER anchors. About 1.5 min and 3 GB per sensor on the CPU."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor, Tracker
+    from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu.state.map_store import MapStore
+    from orb_slam2_detailed_comments_tpu.utils.config import OrbConfig, SlamConfig
+
+    poses, frames = chip_smoke.render_sequence(sensor)
+    kw = chip_smoke.slam_config_kwargs(sensor)
+    cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
+                     fps=kw["fps"], th_depth=kw["th_depth"])
+    old = os.environ.get("ORB_FUSED_TRACK")
+    os.environ["ORB_FUSED_TRACK"] = "1"
+    try:
+        with jax_exact_modes():
+            tracker = Tracker(cfg, MapStore(cfg), {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD,
+                                                   "mono": Sensor.MONOCULAR}[sensor])
+            res = chip_smoke.drive_tracker(tracker, sensor, poses, frames)
+    finally:
+        if old is None:
+            os.environ.pop("ORB_FUSED_TRACK")
+        else:
+            os.environ["ORB_FUSED_TRACK"] = old
+    return {k: res[k] for k in ("tracked", "fused", "keyframes", "ate_m")}
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py [sensor ...]: print the
+    # anchors of chip_smoke.py's tracker phases
+    import sys
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    for s in sys.argv[1:] or ["stereo", "rgbd", "mono"]:
+        print(s, jax_tracker_anchor(s), f"jax {jax.__version__}", flush=True)
