@@ -5,14 +5,17 @@
 
 Builds the port's CUDA kernels from csrc/ (nvcc, into build/kernels/) and
 checks each one bit for bit against its plain PyTorch version on full maps
-at the shapes of the main path ([3]). Then it drives the port at full size:
+at the shapes of the main path ([3]), printing its time per call, its
+device time and its bound. Then it drives the port at full size:
 
   [4]/[5] the per-frame tracking program: the KITTI-geometry stereo step and
           fused frame (1241x376, 2000 features, a 4096-point local map in the
           8192-slot pad) and the TUM-geometry mono step and fused frame
           (640x480, 1000 features), checked against the JAX package's
           inlier counts on the same inputs;
-  [6]     pose recovery from perturbed predictions;
+  [6]     pose recovery from perturbed predictions, and one profiled
+          fused stereo and fused mono frame (CUDA kernels per frame and the
+          device's busy share);
   [7]-[9] the tracking front end, `Tracker`, for SEQ_FRAMES frames of a
           rendered sequence per sensor: stereo at KITTI00-02 geometry, RGB-D
           and mono at TUM1 geometry. It prints and checks the frames
@@ -22,10 +25,13 @@ at the shapes of the main path ([3]). Then it drives the port at full size:
           fused and per staged frame.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
-and read just after; a path that did not launch its kernels fails. The line
+and read just after; a path fails unless each extraction made one
+fast_pyramid and one orb_desc launch and each stereo frame two patch_gather
+launches (the SAD template and strip; the other sensors none). The line
 before the last is the per-kernel JSON (launches, errors, times, bounds);
 the last is {"ok": true, "device": {...}}. There is no CPU path: without a
-CUDA device the script fails.
+CUDA device the script fails. It imports neither jax nor the JAX package,
+and checks that before it prints its result.
 """
 from __future__ import annotations
 
@@ -94,23 +100,35 @@ ATE_RTOL, ATE_ATOL_M = 0.10, 0.002
 # ---- bounds: NVIDIA's H100 SXM data sheet at 700 W -----------------------------
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float32 operations per output pixel of the FAST kernels: 16 ring
-# differences, 2 polarities x (16 arcs x 8 mins + 15 maxes) + 1 max, the
-# threshold, the 3x3 NMS (6 maxes, 3 compares), and the separable 7-tap
-# blur (2 x (7 multiplies + 6 adds))
-FAST_SCORE_OPS = 16 + 2 * (16 * 8 + 15) + 1 + 1
+# float32 operations per output pixel of the FAST kernels: 2 polarities x
+# (the min tree's 4 x 16 mins over the 16 arcs of 9 + 15 maxes) on the ring
+# samples, 2 subtractions of the centre, 1 max, the threshold; the 3x3 NMS
+# (6 maxes, 3 compares); the separable 7-tap blur (2 x (7 multiplies + 6
+# adds)). Arc by arc, 16 x 8 mins a polarity on 16 ring differences, the
+# score was 304 operations; with the tree on the differences 176; on the
+# samples (csrc/fast_pyramid.cu::arc_score) 162.
+FAST_SCORE_OPS = 2 * (4 * 16 + 15) + 2 + 1 + 1
 NMS_OPS = 9
 BLUR_OPS = 2 * (7 + 6)
+# float32 operations per valid keypoint of orb_desc: the IC moments (2
+# multiplies, 2 adds per circle pixel; 2 x 5 adds of the lane tree), the
+# angle's atan2, cos and sin (counted as 3), and per rotated sample 2
+# multiplies, 1 add and 1 rounding (512), then 256 compares
+IC_CIRCLE_PX = 749   # pixels of the radius-15 circle (ops/pattern.py mask)
+ORB_DESC_OPS = 4 * IC_CIRCLE_PX + 10 + 3 + 512 * 4 + 256
 
 KERNEL_SYMBOLS = {"fast_pyramid": "fast_pyramid_kernel", "fast_score_nms_raw": "fast_pyramid_kernel",
-                  "fast_score_nms": "fast_nms_kernel", "patch_gather": "patch_gather_kernel"}
+                  "fast_score_nms": "fast_nms_kernel", "patch_gather": "patch_gather_kernel",
+                  "orb_desc": "orb_desc_kernel"}
+PALLAS_PATCH = "orb_slam2_detailed_comments_tpu/ops/pallas_patch.py:91"
 PALLAS_FAST = "orb_slam2_detailed_comments_tpu/ops/pallas_fast.py"
 CSRC = "orb_slam2_detailed_comments_tpu_torch/csrc"
 KERNELS = {  # name: (source, TPU kernels it replaces)
     "fast_pyramid": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:528, {PALLAS_FAST}:334"),
     "fast_score_nms_raw": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:199"),
     "fast_score_nms": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:405"),
-    "patch_gather": (f"{CSRC}/patch_gather.cu", "orb_slam2_detailed_comments_tpu/ops/pallas_patch.py:91"),
+    "patch_gather": (f"{CSRC}/patch_gather.cu", PALLAS_PATCH),
+    "orb_desc": (f"{CSRC}/orb_desc.cu", PALLAS_PATCH),
 }
 
 
@@ -176,6 +194,105 @@ def _bound(n_bytes, n_ops):
     float32 operations over the peak rate outside the tensor cores."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _orb_desc_work(det, angle):
+    """(bytes, operations) that orb_desc must spend on these keypoints: the
+    level pixels under the valid keypoints' IC circles and the blurred
+    pixels at their rotated samples, each read once (the union over all
+    keypoints, counted on the device), the slots' xy and valid read and
+    their angle and descriptor written; ORB_DESC_OPS per valid keypoint."""
+    import torch
+    from orb_slam2_detailed_comments_tpu_torch.ops.orb_desc import DESC_RADIUS, desc_constants
+    dev = angle.device
+    px, py = desc_constants(dev)[2:]
+    r = torch.arange(-15, 16, device=dev)
+    vv, uu = torch.meshgrid(r, r, indexing="ij")
+    inside = vv * vv + uu * uu <= 240
+    du, dv = uu[inside], vv[inside]
+    n_px, s = 0, 0
+    for img, n in zip(det.levels, det.counts):
+        B, H, W = img.shape
+        xy = det.xy_level[:, s:s + n].long()
+        ok = det.valid[:, s:s + n]
+        x = torch.where(xy[..., 0] < 0, xy[..., 0] + W + 2 * DESC_RADIUS, xy[..., 0]).clamp(0, W - 1)
+        y = torch.where(xy[..., 1] < 0, xy[..., 1] + H + 2 * DESC_RADIUS, xy[..., 1]).clamp(0, H - 1)
+        b = torch.arange(B, device=dev)[:, None, None].expand(B, n, 1)
+        a = angle[:, s:s + n, None]
+        c, sn = torch.cos(a), torch.sin(a)
+        sx = torch.round(px * c - py * sn).long()
+        sy = torch.round(px * sn + py * c).long()
+        for ddx, ddy in ((du.expand(B, n, -1), dv.expand(B, n, -1)), (sx, sy)):
+            cy = (y[..., None] + ddy).clamp(0, H - 1)
+            cx = (x[..., None] + ddx).clamp(0, W - 1)
+            idx = ((b * H + cy) * W + cx)[ok]
+            n_px += int(torch.unique(idx).numel())
+        s += n
+    slots = det.valid.numel()
+    return 4 * n_px + slots * (8 + 1 + 4 + 32), int(det.valid.sum()) * ORB_DESC_OPS
+
+
+def _gather_bytes(src, xy, ph, pw):
+    """Bytes that patch_gather must move for a (C, H, W) stack and (B, 2)
+    window starts: the pixels under the windows (starts wrapped and clamped
+    as patch_gather_plain takes them), each read once over all windows and
+    channels (the union, counted on the device), the starts read and the
+    (B, C, ph, pw) windows written."""
+    import torch
+    C, H, W = src.shape
+    x, y = xy[:, 0].long(), xy[:, 1].long()
+    x0 = torch.where(x < 0, x + W, x).clamp(0, W - pw)
+    y0 = torch.where(y < 0, y + H, y).clamp(0, H - ph)
+    rows = y0[:, None, None] + torch.arange(ph, device=src.device)[:, None]
+    cols = x0[:, None, None] + torch.arange(pw, device=src.device)
+    n_px = int(torch.unique(rows * W + cols).numel())
+    return 4 * (C * n_px + xy.numel() + xy.shape[0] * C * ph * pw)
+
+
+def _profile_frame(fn):
+    """One call of fn under torch.profiler after a warm-up: the CUDA
+    kernels it launched and the device's busy share, the union of the
+    device activities' intervals over the host time of the call (the
+    profiler slows the host, so the share is a lower bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    if not dev:
+        return None, None
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    busy, (lo, hi) = 0.0, dev[0]
+    for a, b in dev[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return kernels, busy / wall_us
+
+
+def pad_map(pos, normal, mind, maxd, desc, valid):
+    """A local map of bench.py's inputs packed into the PAD_SLOTS-slot pad
+    of the fused frames (frontend/device_map.py's layout)."""
+    import torch
+    n, dev = pos.shape[0], pos.device
+    packed = torch.zeros((PAD_SLOTS, 8), dtype=torch.float32, device=dev)
+    packed[:n] = torch.cat([pos, normal, mind[:, None], maxd[:, None]], 1)
+    d = torch.zeros((PAD_SLOTS, 8), dtype=torch.int32, device=dev)
+    d[:n] = desc
+    v = torch.zeros((PAD_SLOTS,), dtype=torch.bool, device=dev)
+    v[:n] = valid
+    return packed, d, v
 
 
 # ---- rendered sequences (numpy; no jax) ------------------------------------------
@@ -311,7 +428,10 @@ def main() -> int:
     from orb_slam2_detailed_comments_tpu_torch.ops.fast_pyramid import (
         fast_pyramid, fast_pyramid_plain, fast_score_nms, fast_score_nms_plain,
         fast_score_nms_raw, fast_score_nms_raw_plain)
-    from orb_slam2_detailed_comments_tpu_torch.ops.orb import DESC_RADIUS
+    from orb_slam2_detailed_comments_tpu_torch.ops.hamming import hamming_distance_pairs
+    from orb_slam2_detailed_comments_tpu_torch.ops.orb import detect_keypoints
+    from orb_slam2_detailed_comments_tpu_torch.ops.orb_desc import (
+        DESC_RADIUS, orb_desc, orb_desc_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.patch_gather import (
         patch_gather, patch_gather_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.pyramid import build_pyramid, edge_pad
@@ -321,6 +441,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     print(_smi(), flush=True)     # the card's name and power limit
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
     diag = _kernels.build()
@@ -332,7 +453,8 @@ def main() -> int:
             print(f"    {line.strip()}")
 
     counters = {"fast_pyramid": fast_pyramid, "fast_score_nms_raw": fast_score_nms_raw,
-                "fast_score_nms": fast_score_nms, "patch_gather": patch_gather}
+                "fast_score_nms": fast_score_nms, "patch_gather": patch_gather,
+                "orb_desc": orb_desc}
 
     def zero_counts():
         for f in counters.values():
@@ -353,8 +475,10 @@ def main() -> int:
             raise AssertionError(f"{name} differs from its plain version: {err}")
         r = report[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        print(f"    bound {bound_ms:.4f} ms ({bound_by}; {n_bytes / 1e6:.2f} MB, "
+              f"{n_ops / 1e6:.1f} M operations)", flush=True)
         if "ms" not in r:   # the first shape is the reported one
-            bound_ms, bound_by = _bound(n_bytes, n_ops)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=None)
             reported[name] = call
@@ -374,6 +498,22 @@ def main() -> int:
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         record("fast_pyramid", err, ms, plain_ms, 16 * px,
                px * (FAST_SCORE_OPS + NMS_OPS + BLUR_OPS), kern)
+
+        # orb_desc on this extraction's own keypoints and maps
+        det = detect_keypoints(imgs, orb)
+        args = (det.levels, det.blur, det.xy_level, det.valid, det.counts)
+        (ga, gd), (ra, rd) = orb_desc(*args), orb_desc_plain(*args)
+        torch.cuda.synchronize()
+        n_ang = int((ga != ra).sum())
+        n_desc = int((gd != rd).any(-1).sum())
+        err = max(_max_err(ga, ra), float(hamming_distance_pairs(gd, rd).max()))
+        kern = functools.partial(orb_desc, *args)
+        ms, plain_ms = _cuda_ms(kern), _cuda_ms(functools.partial(orb_desc_plain, *args))
+        print(f"[3] orb_desc {tag}: {ga.numel()} slots, {int(det.valid.sum())} valid, levels "
+              f"{det.counts}: angles differing {n_ang}, descriptors differing {n_desc}, "
+              f"max|kernel-plain| {err} (angle rad, or most bits of one descriptor); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        record("orb_desc", err, ms, plain_ms, *_orb_desc_work(det, ra), kern)
 
     for tag, img in (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous())):
         th = float(orb_s.min_th_fast)
@@ -400,9 +540,11 @@ def main() -> int:
     xy = torch.stack([torch.randint(-8, W + 8, (2048,), generator=g),
                       torch.randint(-8, H + 8, (2048,), generator=g)], -1).to(torch.int32).to(dev)
     pad_lr = img_l.contiguous()[None]
-    for tag, src, coords, ph, pw in (("orb 2048x(2,39,39)", padded, xy, 39, 39),
-                                     ("sad template 2048x11x11", pad_lr, xy, 11, 11),
-                                     ("sad strip 2048x11x21", pad_lr, xy, 11, 21)):
+    # the SAD template is the reported shape: it is the path's; the ORB
+    # windows are no longer gathered on the path and stay checked
+    for tag, src, coords, ph, pw in (("sad template 2048x11x11", pad_lr, xy, 11, 11),
+                                     ("sad strip 2048x11x21", pad_lr, xy, 11, 21),
+                                     ("orb 2048x(2,39,39)", padded, xy, 39, 39)):
         got = patch_gather(src, coords, ph, pw)
         ref = patch_gather_plain(src, coords, ph, pw)
         torch.cuda.synchronize()
@@ -412,8 +554,7 @@ def main() -> int:
         plain_ms = _cuda_ms(functools.partial(patch_gather_plain, src, coords, ph, pw))
         print(f"[3] patch_gather {tag}: max|kernel-plain| {err}; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        record("patch_gather", err, ms, plain_ms,
-               4 * (src.numel() + coords.numel() + got.numel()), 0, kern)
+        record("patch_gather", err, ms, plain_ms, _gather_bytes(src, coords, ph, pw), 0, kern)
 
     dev_ms = {name: _device_ms(call, KERNEL_SYMBOLS[name]) for name, call in reported.items()}
     print("[3] device ms per launch at the reported shapes (torch.profiler, "
@@ -445,16 +586,6 @@ def main() -> int:
                      "fast_score_nms": launches["fast_score_nms"]}
 
     # ---- [4]/[5] the per-frame tracking program at full size ----
-    def pad_map(pos, normal, mind, maxd, desc, valid):
-        n = pos.shape[0]
-        packed = torch.zeros((PAD_SLOTS, 8), dtype=torch.float32, device=dev)
-        packed[:n] = torch.cat([pos, normal, mind[:, None], maxd[:, None]], 1)
-        d = torch.zeros((PAD_SLOTS, 8), dtype=torch.int32, device=dev)
-        d[:n] = desc
-        v = torch.zeros((PAD_SLOTS,), dtype=torch.bool, device=dev)
-        v[:n] = valid
-        return packed, d, v
-
     def check_inliers(name, n_in):
         ref = JAX_CPU_INLIERS[name]
         print(f"    {name}: n_inliers {n_in} (JAX on CPU {ref}, limit +-{INLIER_RTOL:.0%})")
@@ -467,13 +598,16 @@ def main() -> int:
             raise AssertionError(f"{name}: non-finite pose")
         return Tcw
 
-    def check_path(name):
-        """The launch counts of the path just driven; both path kernels
-        must have run."""
+    def check_path(name, extractions, stereo):
+        """The launch counts of the path just driven: one fast_pyramid and
+        one orb_desc launch per extraction, two patch_gather launches (the
+        SAD template and strip) per stereo frame and none otherwise."""
         n = read_counts()
         print(f"    {name} path launches {n}", flush=True)
-        if not (n["fast_pyramid"] > 0 and n["patch_gather"] > 0):
-            raise AssertionError(f"the {name} path did not launch both kernels")
+        want = dict(fast_pyramid=extractions, orb_desc=extractions,
+                    patch_gather=2 * extractions if stereo else 0)
+        if extractions == 0 or any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"the {name} path launched {n}, expected {want}")
         return n
 
     s_args, orb_s, cam_s = S.make_stereo_inputs(device=dev)
@@ -493,7 +627,7 @@ def main() -> int:
     print(f"[4] stereo_tracking_step 1241x376: {ms['stereo_tracking_step']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("stereo_tracking_step", int(out[3]))
-    check_path("stereo_tracking_step")
+    check_path("stereo_tracking_step", N_FRAMES, stereo=True)
     zero_counts()
     (blob, _), ms["fused_stereo_frame"] = _frame_ms(lambda: S.fused_stereo_frame(
         pair, Tcw_s, *s_pad, orb=orb_s, cam=cam_s, th_depth=th_depth))
@@ -502,7 +636,7 @@ def main() -> int:
     print(f"[4] fused_stereo_frame 1241x376: {ms['fused_stereo_frame']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("fused_stereo_frame", int(ts[16]))
-    check_path("fused_stereo_frame")
+    check_path("fused_stereo_frame", N_FRAMES, stereo=True)
 
     zero_counts()
     out, ms["mono_tracking_step"] = _frame_ms(
@@ -511,7 +645,7 @@ def main() -> int:
     print(f"[5] mono_tracking_step 640x480: {ms['mono_tracking_step']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("mono_tracking_step", int(out[3]))
-    check_path("mono_tracking_step")
+    check_path("mono_tracking_step", N_FRAMES, stereo=False)
     zero_counts()
     (blob, _), ms["fused_mono_frame"] = _frame_ms(lambda: S.fused_mono_frame(
         img_m, Tcw_m, *m_pad, orb=orb_m, cam=cam_m))
@@ -520,7 +654,7 @@ def main() -> int:
     print(f"[5] fused_mono_frame 640x480: {ms['fused_mono_frame']:.3f} ms/frame "
           f"(median of {N_FRAMES})")
     check_inliers("fused_mono_frame", int(ts[16]))
-    check_path("fused_mono_frame")
+    check_path("fused_mono_frame", N_FRAMES, stereo=False)
 
     # ---- [6] pose recovery from a perturbed prediction (stereo frame) ----
     deltas = ((0.05, 0.0, 0.0, 0.0, 0.0, 0.0),           # 5 cm sideways: ~1.9 px
@@ -538,8 +672,20 @@ def main() -> int:
         if not (err_t < POSE_TOL_M and err_r < POSE_TOL_DEG):
             raise AssertionError(f"pose not recovered from delta {delta}")
 
+    # one profiled fused frame per sensor geometry: CUDA kernels per frame
+    # and the device's busy share
+    for name, fn in (("fused_stereo_frame", lambda: S.fused_stereo_frame(
+                          pair, Tcw_s, *s_pad, orb=orb_s, cam=cam_s, th_depth=th_depth)),
+                     ("fused_mono_frame", lambda: S.fused_mono_frame(
+                          img_m, Tcw_m, *m_pad, orb=orb_m, cam=cam_m))):
+        n_kernels, busy = _profile_frame(fn)
+        print(f"[6] {name} under torch.profiler: "
+              + ("no device activity traced (not measured)" if n_kernels is None else
+                 f"{n_kernels} CUDA kernels per frame, device busy {100 * busy:.2f}% "
+                 "of the host time of the frame"), flush=True)
+
     # ---- [7]-[9] the tracking front end, Tracker, per sensor ----
-    path_launches.update(fast_pyramid=0, patch_gather=0)
+    path_launches.update(fast_pyramid=0, patch_gather=0, orb_desc=0)
     sensors = {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD, "mono": Sensor.MONOCULAR}
     for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=7):
         t0 = time.perf_counter()
@@ -554,9 +700,9 @@ def main() -> int:
         tracker = Tracker(cfg, MapStore(cfg), sensors[sensor], device=dev)
         zero_counts()
         res = drive_tracker(tracker, sensor, poses, frames, sync=torch.cuda.synchronize)
-        n = check_path(f"Tracker {sensor}")
-        path_launches["fast_pyramid"] += n["fast_pyramid"]
-        path_launches["patch_gather"] += n["patch_gather"]
+        n = check_path(f"Tracker {sensor}", len(frames), stereo=sensor == "stereo")
+        for k in ("fast_pyramid", "patch_gather", "orb_desc"):
+            path_launches[k] += n[k]
         ref = JAX_CPU_TRACKER[sensor]
         med = {k: (f"{statistics.median(res[k]):.3f}" if res[k] else "none")
                for k in ("ms_fused", "ms_staged")}
@@ -582,6 +728,9 @@ def main() -> int:
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    jax_mods = [m for m in ("jax", "orb_slam2_detailed_comments_tpu") if m in sys.modules]
+    if jax_mods:
+        raise AssertionError(f"the port's run imported {jax_mods}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": path_launches[name],

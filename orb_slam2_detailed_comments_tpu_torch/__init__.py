@@ -3,11 +3,14 @@
 The JAX package `orb_slam2_detailed_comments_tpu` is the reference; every
 module here sits at the same relative path as its counterpart there and
 computes the same thing with plain PyTorch tensors on an explicit device.
-The two Pallas kernels of the per-frame tracking program are hand-written
+The Pallas kernels of the per-frame tracking program are hand-written
 CUDA C++ kernels (`csrc/`), built by `ops/_kernels.py` at first use:
 
   ops/fast_pyramid.py  + csrc/fast_pyramid.cu  FAST/NMS/raw/blur maps
-  ops/patch_gather.py  + csrc/patch_gather.cu  clamped window gather
+  ops/orb_desc.py      + csrc/orb_desc.cu      IC angle + rotated BRIEF
+                                               (the ORB window gather fused
+                                               with its consumer)
+  ops/patch_gather.py  + csrc/patch_gather.cu  clamped window gather (SAD)
 
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor.

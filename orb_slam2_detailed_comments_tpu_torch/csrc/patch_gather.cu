@@ -10,14 +10,13 @@
 // at arbitrary offsets, and it took square windows only; here any (ph, pw)
 // is a plain strided copy.
 //
-// What bounds it on an H100: it is a pure copy. The ORB call writes
-// 2 x 39 x 39 floats (12.2 KB) per keypoint, ~24 MB per image at 2000
-// keypoints, and reads as much (mostly from L2: neighbouring windows
-// overlap); the SAD template and strip move ~2.9 MB at 2048 keypoints. So it
-// is bound by HBM bytes and, at the small levels, by launch latency. Design: one block per window; the threads
-// stride over the C*ph*pw outputs, so stores are contiguous and each row of
-// a window is a contiguous read. Fusing the gather into its consumers (the
-// descriptor and the SAD) is later work.
+// What bounds it on an H100: it is a pure copy. The SAD template and strip
+// move ~2.9 MB at 2048 keypoints, so it is bound by HBM bytes and launch
+// latency. (At its ORB call site, 2 x 39 x 39 floats per keypoint, the
+// gather is fused with its consumer in orb_desc.cu and writes no window.)
+// Design: one block per window; the threads stride over the C*ph*pw
+// outputs, so stores are contiguous and each row of a window is a
+// contiguous read. Fusing it into the SAD is later work.
 #include <cuda_runtime.h>
 
 namespace {

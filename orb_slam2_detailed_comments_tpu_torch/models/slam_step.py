@@ -5,7 +5,8 @@ Counterpart of orb_slam2_detailed_comments_tpu/models/slam_step.py (the
 reference's Frame construction -> SearchByProjection -> PoseOptimization
 call stack, Tracking.cc:428-790). Each entry point takes tensors on one
 device and returns tensors on it; the CUDA kernels of ops/fast_pyramid.py
-and ops/patch_gather.py run inside extraction and stereo matching.
+and ops/orb_desc.py run inside extraction, that of ops/patch_gather.py
+inside stereo matching.
 
 `match_to_kp` reproduces the JAX package's duplicate-index scatter as it
 behaves under XLA on the CPU (the last write wins), deterministically: a

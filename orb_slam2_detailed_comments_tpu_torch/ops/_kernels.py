@@ -27,12 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # src, entries, tiles, n_tiles, gauss7, threshold, nms, raw, blur, stream
-    "fast_pyramid_launch": (_P, _P, _P, _I, _P, _F, _P, _P, _P, _P),
+    # n_entries, src[], H[], W[], gauss[7], threshold, nms, raw, blur, stream
+    "fast_pyramid_launch": (_I, _P, _P, _P, _P, _F, _P, _P, _P, _P),
     # img, H, W, threshold, nms, stream
     "fast_nms_launch": (_P, _I, _I, _F, _P, _P),
     # src, xy, out, n_stacks, C, H, W, B, ph, pw, stream
     "patch_gather_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # n_levels, img[], blur[], H[], W[], counts[], xy, valid, px, py, B, N, r,
+    # angle, desc, stream
+    "orb_desc_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -33,16 +33,15 @@ for bit. `fast_pyramid.launches`, `fast_score_nms_raw.launches` and
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from . import _kernels
 from .fast import fast_score_dense, fast_score_map, nms_3x3
 from .pyramid import _gauss_kernel_1d, edge_pad, gaussian_blur, reflect101_index
 
-TILE_W, TILE_H = 32, 16   # the kernels' output tile
 RING_R = 3                # FAST ring radius
 
 
@@ -87,29 +86,24 @@ def fast_score_nms_plain(img, threshold: float):
     return torch.where(inb, nms, 0.0)
 
 
+_GAUSS = (ctypes.c_float * 7)(*map(float, _gauss_kernel_1d(7, 2.0)))
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(shapes, B: int, device: torch.device):
-    """Offsets of each (image, level) in the flat buffers, the tile table,
-    and the blur taps, on `device`. shapes: ((H, W), ...) per level."""
-    entries, tiles, off = [], [], 0
-    for H, W in shapes:
-        for b in range(B):
-            e = len(entries)
-            entries.append((off + b * H * W, H, W, 0))
-            tiles += [(e, y, x, 0) for y in range(0, H, TILE_H) for x in range(0, W, TILE_W)]
-        off += B * H * W
-
-    def dev(a, dtype):
-        return torch.from_numpy(np.asarray(a, dtype)).to(device)
-
-    return (dev(entries, np.int32), dev(tiles, np.int32),
-            dev(_gauss_kernel_1d(7, 2.0), np.float32), off)
+def _entry_shapes(shapes, B: int):
+    """H and W of each (image, level) entry as C arrays: entry b + B * l is
+    image b of level l."""
+    hw = [s for s in shapes for _ in range(B)]
+    n = len(hw)
+    return (ctypes.c_int * n)(*(h for h, _ in hw)), (ctypes.c_int * n)(*(w for _, w in hw))
 
 
 def _check_levels(levels):
     if not levels:
         raise ValueError("fast_pyramid needs at least one level")
     B, dev = levels[0].shape[0], levels[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fast_pyramid runs on cpu or cuda, not {dev}")
     for lv in levels:
         if lv.dtype != torch.float32:
             raise TypeError(f"fast_pyramid takes float32 levels, got {lv.dtype}")
@@ -119,29 +113,34 @@ def _check_levels(levels):
             raise ValueError(f"level {tuple(lv.shape)} is smaller than the 4-px halo allows")
         if not lv.is_contiguous():
             raise ValueError("fast_pyramid takes contiguous levels")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"fast_pyramid runs on cpu or cuda, not {dev}")
+
+
+def launch_args(levels, threshold: float):
+    """(out, args): a (3, total) float32 buffer for the flat nms, raw and
+    blur maps, entry after entry, and the arguments of
+    csrc/fast_pyramid.cu::fast_pyramid_launch that fill it, reading each
+    level where it lies. The launch makes the tiling and refuses more
+    entries than one launch takes."""
+    dev, B = levels[0].device, levels[0].shape[0]
+    Hs, Ws = _entry_shapes(tuple((lv.shape[1], lv.shape[2]) for lv in levels), B)
+    src = (ctypes.c_void_p * len(Hs))(*(lv.data_ptr() + 4 * b * lv.shape[1] * lv.shape[2]
+                                         for lv in levels for b in range(B)))
+    total = sum(lv.numel() for lv in levels)
+    out = torch.empty((3, total), dtype=torch.float32, device=dev)
+    p = out.data_ptr()
+    return out, (len(Hs), src, Hs, Ws, _GAUSS, float(threshold), p, p + 4 * total,
+                 p + 8 * total, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _launch_pyramid(levels, threshold: float):
-    """One launch of the pyramid kernel over all images x levels."""
-    dev = levels[0].device
-    B = levels[0].shape[0]
-    shapes = tuple((int(lv.shape[1]), int(lv.shape[2])) for lv in levels)
-    entries, tiles, gk, total = _tables(shapes, B, dev)
-    src = torch.cat([lv.reshape(-1) for lv in levels])
-    out = torch.empty((3, total), dtype=torch.float32, device=dev)
-    lib = _kernels.library()
-    rc = lib.fast_pyramid_launch(src.data_ptr(), entries.data_ptr(), tiles.data_ptr(),
-                                 tiles.shape[0], gk.data_ptr(), float(threshold),
-                                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(rc, "fast_pyramid")
-    maps, off = ([], [], []), 0
-    for H, W in shapes:
-        for m, buf in zip(maps, out):
-            m.append(buf[off:off + B * H * W].view(B, H, W))
-        off += B * H * W
+    """One launch of the pyramid kernel over all images x levels; the maps
+    are views of one (3, total) buffer."""
+    out, args = launch_args(levels, threshold)
+    _kernels.check(_kernels.library().fast_pyramid_launch(*args), "fast_pyramid")
+    maps = ([], [], [])
+    for chunk, lv in zip(out.split([lv.numel() for lv in levels], dim=1), levels):
+        for m, x in zip(maps, chunk.view(3, *lv.shape).unbind(0)):
+            m.append(x)
     return maps
 
 

@@ -9,10 +9,11 @@ blurred level.
 
 Extraction is batched over a leading image axis: the FAST/NMS/raw/blur
 maps of all images x levels come from ONE launch of the fast_pyramid
-kernel, and the per-keypoint (2, 39, 39) [raw, blur] patches from the
-patch_gather kernel. Descriptors are sampled by an exact gather from the
-patch (the JAX package's ORB_DESC_ONEHOT=0 form, its specification; the
-one-hot MXU contraction is a TPU device and is not ported).
+kernel, and the angles and descriptors of all their keypoints from ONE
+launch of the orb_desc kernel, which samples the level and blur maps in
+place (no patch tensor). Descriptors are sampled exactly, as the JAX
+package's ORB_DESC_ONEHOT=0 form, its specification, samples them; the
+one-hot MXU contraction is a TPU device and is not ported.
 
 Tie-breaks are part of the result: lax.top_k and jnp.argsort prefer the
 lower index, so both selections here are stable sorts, and the sort key
@@ -20,23 +21,16 @@ rank * 1e6 - score is formed in float32 exactly as the JAX package forms it.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..utils.config import OrbConfig
 from .fast_pyramid import fast_pyramid
-from .hamming import pack_bits
-from .patch_gather import patch_gather
-from .pattern import brief_pattern, ic_angle_offsets, HALF_PATCH
-from .pyramid import build_pyramid, edge_pad, features_per_level, pyramid_shapes
+from .orb_desc import orb_desc
+from .pyramid import build_pyramid, features_per_level, pyramid_shapes
 
-# Patch radius that safely contains the rotated BRIEF pattern
-# (pattern offsets are clipped to radius 13; 13*sqrt(2) < 19).
-DESC_RADIUS = 19
 CELL_TOPK = 16  # max candidates kept per FAST grid cell
 
 
@@ -80,47 +74,6 @@ def _select_level_keypoints(score, budget: int, cell: int):
             vals.gather(1, order), cand_valid.gather(1, order))
 
 
-@functools.lru_cache(maxsize=None)
-def _desc_constants(device: torch.device):
-    """IC-angle weights zero-padded to the 39x39 patch, and the 512 pattern
-    offsets (px, py) = ([x0, x1], [y0, y1]), on `device`."""
-    mask, xs, ys = ic_angle_offsets()
-    pad = DESC_RADIUS - HALF_PATCH
-    wx = np.pad(xs * mask, pad).astype(np.float32)
-    wy = np.pad(ys * mask, pad).astype(np.float32)
-    p = brief_pattern(1234).astype(np.float32)
-    px = np.concatenate([p[:, 0], p[:, 2]])
-    py = np.concatenate([p[:, 1], p[:, 3]])
-    return tuple(torch.from_numpy(a).to(device) for a in (wx, wy, px, py))
-
-
-def _fused_level_angles_descriptors(raw_img, blurred_img, xy, valid):
-    """Orientation + rotated BRIEF for one level's keypoints in one pass.
-
-    raw_img, blurred_img: (B, H, W); xy: (B, n, 2) integer level coords;
-    valid: (B, n). Each keypoint takes one (2, 39, 39) [raw, blur] patch
-    (patch_gather); the angle is the IC statistic of channel 0 (reference:
-    ORBextractor.cc:104-161) and the 256 bits compare gathered channel-1
-    samples (reference :177-254)."""
-    wx39, wy39, px, py = _desc_constants(raw_img.device)
-    r = DESC_RADIUS
-    psize = 2 * r + 1
-    padded = edge_pad(torch.stack([raw_img, blurred_img], dim=1), r, r).contiguous()
-    patches = patch_gather(padded, xy.to(torch.int32).contiguous(), psize)  # (B, n, 2, 39, 39)
-    rawp, blurp = patches[:, :, 0], patches[:, :, 1]
-    m10 = torch.sum(rawp * wx39, dim=(-2, -1))
-    m01 = torch.sum(rawp * wy39, dim=(-2, -1))
-    ang = torch.atan2(m01, m10)
-    ca, sa = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
-    dx = torch.round(px * ca - py * sa).to(torch.int64)  # (B, n, 512)
-    dy = torch.round(px * sa + py * ca).to(torch.int64)
-    v = blurp.reshape(blurp.shape[:2] + (-1,)).gather(-1, (dy + r) * psize + (dx + r))
-    desc = pack_bits(v[..., :256] < v[..., 256:])
-    ang = torch.where(valid, ang, 0.0)
-    desc = torch.where(valid[..., None], desc, 0)
-    return ang, desc
-
-
 def extract_orb(img, config: OrbConfig, n_features: int = 0) -> Keypoints:
     """Extract ORB features from a (H, W) float32 grayscale image in
     [0, 255]; capacity config.max_keypoints (padded, masked). `n_features`
@@ -129,11 +82,24 @@ def extract_orb(img, config: OrbConfig, n_features: int = 0) -> Keypoints:
     return Keypoints(*[a[0] for a in extract_orb_batch(img[None], config, n_features)])
 
 
-def extract_orb_batch(imgs, config: OrbConfig, n_features: int = 0) -> Keypoints:
-    """Batched extraction over a leading image axis: (B, H, W) -> Keypoints
-    with (B, ...) leading dims. The stereo frontend feeds the L/R pair as
-    B=2 (the reference runs two extraction threads, Frame.cc:158-164).
-    `n_features` as in extract_orb."""
+class Detections(NamedTuple):
+    """The keypoints of all levels before their angles and descriptors,
+    concatenated level by level (level l holds the next counts[l] slots)
+    and cut to config.max_keypoints, with the maps orb_desc reads."""
+    levels: list            # (B, H_l, W_l) float32 level images
+    blur: list              # (B, H_l, W_l) float32 blurred levels (fast_pyramid)
+    xy_level: torch.Tensor  # (B, N, 2) int32 level coords (x, y)
+    xy: torch.Tensor        # (B, N, 2) float32 level-0 coords, sub-pixel
+    response: torch.Tensor  # (B, N) float32
+    octave: torch.Tensor    # (B, N) int32
+    valid: torch.Tensor     # (B, N) bool
+    counts: tuple           # slots per level
+
+
+def detect_keypoints(imgs, config: OrbConfig, n_features: int = 0) -> Detections:
+    """Pyramid, FAST maps (one fast_pyramid launch for all images x
+    levels), per-level selection and sub-pixel refinement of a (B, H, W)
+    batch. `n_features` as in extract_orb."""
     imgs = imgs.to(torch.float32)
     B, H0, W0 = imgs.shape
     dev = imgs.device
@@ -145,11 +111,12 @@ def extract_orb_batch(imgs, config: OrbConfig, n_features: int = 0) -> Keypoints
     shapes = pyramid_shapes(H0, W0, n_levels, config.scale_factor)
     nms_all, raw_all, blur_all = fast_pyramid(levels, float(config.min_th_fast))
 
-    outs = []
+    outs, counts = [], []
     for lv in range(n_levels):
         H, W = shapes[lv]
         budget = int(budgets[lv])
         if budget <= 0:
+            counts.append(0)
             continue
         # exclude the descriptor-unsafe border (edge-replicate padding)
         ys2 = torch.arange(H, device=dev)[:, None]
@@ -184,31 +151,41 @@ def extract_orb_batch(imgs, config: OrbConfig, n_features: int = 0) -> Keypoints
         dy = torch.where(oky, 0.5 * (su - sd) / torch.where(oky, deny, 1.0), 0.0)
         subpix = torch.stack([dx.clamp(-0.5, 0.5), dy.clamp(-0.5, 0.5)], dim=-1)
 
-        ang, desc = _fused_level_angles_descriptors(
-            levels[lv], blur_all[lv], xy_i, valid)
-
         # half-pixel-correct mapping to level-0 coordinates (pixel centers
         # align under the bilinear resize): x0 = (xl + 0.5) * (W0/Wl) - 0.5
         sxy = torch.tensor([W0 / W, H0 / H], dtype=torch.float32, device=dev)
         n = xy_i.shape[1]
+        counts.append(n)
         outs.append((
+            xy_i.to(torch.int32),
             (xy_i.to(torch.float32) + subpix + 0.5) * sxy - 0.5,
             resp,
             torch.full((B, n), lv, dtype=torch.int32, device=dev),
-            ang,
-            desc,
             valid,
         ))
 
-    xy, resp, oct_, ang, desc, valid = (torch.cat([o[i] for o in outs], dim=1)
-                                        for i in range(6))
+    # the slots past max_keypoints are cut before their descriptors
+    cap, kept = config.max_keypoints, []
+    for n in counts:
+        kept.append(min(n, cap - sum(kept)))
+    xy_lv, xy, resp, oct_, valid = (torch.cat([o[i] for o in outs], dim=1)[:, :cap].contiguous()
+                                    for i in range(5))
+    return Detections(levels, blur_all, xy_lv, xy, resp, oct_, valid, tuple(kept))
+
+
+def extract_orb_batch(imgs, config: OrbConfig, n_features: int = 0) -> Keypoints:
+    """Batched extraction over a leading image axis: (B, H, W) -> Keypoints
+    with (B, ...) leading dims. The stereo frontend feeds the L/R pair as
+    B=2 (the reference runs two extraction threads, Frame.cc:158-164).
+    `n_features` as in extract_orb. The angles and descriptors of all
+    images x levels come from one orb_desc call."""
+    d = detect_keypoints(imgs, config, n_features)
+    ang, desc = orb_desc(d.levels, d.blur, d.xy_level, d.valid, d.counts)
+    xy, resp, oct_, valid = d.xy, d.response, d.octave, d.valid
+    B, n = valid.shape
     cap = config.max_keypoints
-    n = xy.shape[1]
     if n < cap:
         xy, resp, oct_, ang, desc, valid = (
             torch.cat([a, a.new_zeros((B, cap - n) + a.shape[2:])], dim=1)
             for a in (xy, resp, oct_, ang, desc, valid))
-    else:
-        xy, resp, oct_, ang, desc, valid = (
-            a[:, :cap] for a in (xy, resp, oct_, ang, desc, valid))
     return Keypoints(xy=xy, response=resp, octave=oct_, angle=ang, desc=desc, valid=valid)

@@ -5,8 +5,9 @@
 semantics: a negative start counts from the end (x + W), then the starts
 are clamped to [0, W-pw] x [0, H-ph]. A leading
 batch (N, C, H, W) with (N, B, 2) coordinates gathers from each stack
-separately. It serves the per-keypoint (2, 39, 39) [raw, blur] ORB patches
-and the 11x11 / 11x21 SAD template and strip of the stereo matcher.
+separately. It serves the 11x11 / 11x21 SAD template and strip of the
+stereo matcher; at its other TPU call site, the (2, 39, 39) ORB windows,
+it is fused with its consumer into ops/orb_desc.py.
 
 For a CUDA tensor it launches csrc/patch_gather.cu; for a CPU tensor it
 runs `patch_gather_plain`, the advanced-indexing version it is checked
