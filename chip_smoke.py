@@ -26,8 +26,10 @@ device time and its bound. Then it drives the port at full size:
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
-fast_pyramid and one orb_desc launch and each stereo frame two patch_gather
-launches (the SAD template and strip; the other sensors none). The line
+fast_pyramid and one orb_desc launch and each stereo frame one stereo_sad
+launch (the other sensors none), and no path launched patch_gather,
+fast_score_nms_raw or fast_score_nms: those three are on no path and are
+driven once per [3] shape instead. The line
 before the last is the per-kernel JSON (launches, errors, times, bounds);
 the last is {"ok": true, "device": {...}}. There is no CPU path: without a
 CUDA device the script fails. It imports neither jax nor the JAX package,
@@ -116,10 +118,19 @@ BLUR_OPS = 2 * (7 + 6)
 # multiplies, 1 add and 1 rounding (512), then 256 compares
 IC_CIRCLE_PX = 749   # pixels of the radius-15 circle (ops/pattern.py mask)
 ORB_DESC_OPS = 4 * IC_CIRCLE_PX + 10 + 3 + 512 * 4 + 256
+# float32 operations of K5's early test per pixel of the image + 1 px
+# (csrc/fast_pyramid.cu::may_pass: 4 subtractions, 8 compares); the arc
+# score is counted only for the pixels that pass it
+FAST_TEST_OPS = 4 + 8
+# float32 operations per slot of stereo_sad: the centre normalisation of the
+# 11x11 template and 11x21 strip, 11 offsets x 121 x (subtract, abs, add),
+# the 4-step column tree of each offset, the argmin (10 compares) and the
+# parabola (~12)
+STEREO_SAD_OPS = 121 + 231 + 11 * 121 * 3 + 11 * 4 + 10 + 12
 
 KERNEL_SYMBOLS = {"fast_pyramid": "fast_pyramid_kernel", "fast_score_nms_raw": "fast_pyramid_kernel",
                   "fast_score_nms": "fast_nms_kernel", "patch_gather": "patch_gather_kernel",
-                  "orb_desc": "orb_desc_kernel"}
+                  "orb_desc": "orb_desc_kernel", "stereo_sad": "stereo_sad_kernel"}
 PALLAS_PATCH = "orb_slam2_detailed_comments_tpu/ops/pallas_patch.py:91"
 PALLAS_FAST = "orb_slam2_detailed_comments_tpu/ops/pallas_fast.py"
 CSRC = "orb_slam2_detailed_comments_tpu_torch/csrc"
@@ -129,7 +140,9 @@ KERNELS = {  # name: (source, TPU kernels it replaces)
     "fast_score_nms": (f"{CSRC}/fast_pyramid.cu", f"{PALLAS_FAST}:405"),
     "patch_gather": (f"{CSRC}/patch_gather.cu", PALLAS_PATCH),
     "orb_desc": (f"{CSRC}/orb_desc.cu", PALLAS_PATCH),
+    "stereo_sad": (f"{CSRC}/stereo_sad.cu", PALLAS_PATCH),
 }
+OFF_PATH = ("fast_score_nms_raw", "fast_score_nms", "patch_gather")   # driven in [3]
 
 
 def _smi() -> str:
@@ -158,19 +171,24 @@ def _cuda_ms(fn, reps=TIMING_REPS):
 
 def _device_ms(fn, symbol, reps=TIMING_REPS):
     """Device ms per launch of the CUDA kernel `symbol` over `reps` calls of
-    fn, from torch.profiler's CUPTI trace; None where the trace shows no
-    launch of it."""
+    fn, from torch.profiler's CUPTI trace; a trace that shows no launch of
+    it is taken once more (one such trace was seen), then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if symbol in e.key]
-    n = sum(e.count for e in evs)
-    return sum(e.device_time_total for e in evs) / 1e3 / n if n else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if symbol in e.key]
+        n = sum(e.count for e in evs)
+        if n:
+            return sum(e.device_time_total for e in evs) / 1e3 / n
+        print(f"    (the trace holds no {symbol} launch, only "
+              f"{sorted({e.key[:40] for e in prof.key_averages()})})", flush=True)
+    return None
 
 
 def _frame_ms(fn, n=N_FRAMES):
@@ -247,6 +265,28 @@ def _gather_bytes(src, xy, ph, pw):
     cols = x0[:, None, None] + torch.arange(pw, device=src.device)
     n_px = int(torch.unique(rows * W + cols).numel())
     return 4 * (C * n_px + xy.numel() + xy.shape[0] * C * ph * pw)
+
+
+def _stereo_sad_bytes(img_l, xl, yl, xr, idx):
+    """Bytes that stereo_sad must move for these slots: the pixels under the
+    11x11 templates of the left image and the 11x21 strips of the right one
+    (edge-clamped), each read once over all slots (the union per image,
+    counted on the device), xl, yl, idx and xr read and two floats a slot
+    written."""
+    import torch
+    from orb_slam2_detailed_comments_tpu_torch.ops.stereo_sad import SAD_HALF, SLIDE, round_clamp
+    H, W = img_l.shape
+    dev = img_l.device
+    yl_i = round_clamp(yl, H)
+    rows = (yl_i[:, None, None] + torch.arange(-SAD_HALF, SAD_HALF + 1, device=dev)[:, None])
+    rows = rows.clamp(0, H - 1)
+    n_px = 0
+    for xc, half in ((round_clamp(xl, W), SAD_HALF),
+                     (round_clamp(xr[idx.long()], W), SAD_HALF + SLIDE)):
+        cols = (xc[:, None, None] + torch.arange(-half, half + 1, device=dev)).clamp(0, W - 1)
+        n_px += int(torch.unique(rows * W + cols).numel())
+    N = xl.numel()
+    return 4 * (n_px + 3 * N + xr.numel() + 2 * N)
 
 
 def _profile_frame(fn):
@@ -341,6 +381,7 @@ def _check_on_texture(world, poses):
                                  f"{tx.max():.0f}, y {ty.min():.0f}..{ty.max():.0f}")
 
 
+@functools.lru_cache(maxsize=None)
 def render_sequence(sensor):
     """(poses (N, 4, 4) world->camera, frames: the argument tuples of the
     tracker's entry point without the timestamp)."""
@@ -426,15 +467,18 @@ def main() -> int:
     from orb_slam2_detailed_comments_tpu_torch.models import slam_step as S
     from orb_slam2_detailed_comments_tpu_torch.ops import _kernels
     from orb_slam2_detailed_comments_tpu_torch.ops.fast_pyramid import (
-        fast_pyramid, fast_pyramid_plain, fast_score_nms, fast_score_nms_plain,
-        fast_score_nms_raw, fast_score_nms_raw_plain)
+        fast_nms_survivors, fast_pyramid, fast_pyramid_plain, fast_score_nms,
+        fast_score_nms_plain, fast_score_nms_raw, fast_score_nms_raw_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.hamming import hamming_distance_pairs
-    from orb_slam2_detailed_comments_tpu_torch.ops.orb import detect_keypoints
+    from orb_slam2_detailed_comments_tpu_torch.ops.orb import (
+        Keypoints, detect_keypoints, extract_orb_batch)
     from orb_slam2_detailed_comments_tpu_torch.ops.orb_desc import (
         DESC_RADIUS, orb_desc, orb_desc_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.patch_gather import (
         patch_gather, patch_gather_plain)
     from orb_slam2_detailed_comments_tpu_torch.ops.pyramid import build_pyramid, edge_pad
+    from orb_slam2_detailed_comments_tpu_torch.ops.stereo import coarse_match
+    from orb_slam2_detailed_comments_tpu_torch.ops.stereo_sad import stereo_sad, stereo_sad_plain
     from orb_slam2_detailed_comments_tpu_torch.state.map_store import MapStore
     from orb_slam2_detailed_comments_tpu_torch.utils.config import OrbConfig, SlamConfig
 
@@ -454,7 +498,7 @@ def main() -> int:
 
     counters = {"fast_pyramid": fast_pyramid, "fast_score_nms_raw": fast_score_nms_raw,
                 "fast_score_nms": fast_score_nms, "patch_gather": patch_gather,
-                "orb_desc": orb_desc}
+                "orb_desc": orb_desc, "stereo_sad": stereo_sad}
 
     def zero_counts():
         for f in counters.values():
@@ -464,24 +508,26 @@ def main() -> int:
         return {k: f.launches for k, f in counters.items()}
 
     # ---- [3] kernels against their plain versions at main-path shapes ----
-    (img_l, img_r, *_), orb_s, _ = S.make_stereo_inputs(device=dev)
+    (img_l, img_r, *_), orb_s, cam_s = S.make_stereo_inputs(device=dev)
     (img_m, *_), orb_m, _ = S.make_consistent_inputs(device=dev)
     report = {k: {"max_abs_err": 0.0} for k in counters}
 
-    reported = {}   # name: the call at the reported shape, for the device time
-
     def record(name, err, ms, plain_ms, n_bytes, n_ops, call):
+        """Hold the kernel's error at 0, print its device time per launch
+        (torch.profiler over TIMING_REPS calls) and bound at this shape; the
+        first shape of each kernel is the reported one."""
         if err != 0.0:
             raise AssertionError(f"{name} differs from its plain version: {err}")
         r = report[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
-        print(f"    bound {bound_ms:.4f} ms ({bound_by}; {n_bytes / 1e6:.2f} MB, "
+        dev_ms = _device_ms(call, KERNEL_SYMBOLS[name])
+        print(f"    device {'not measured' if dev_ms is None else f'{dev_ms:.4f}'} ms per "
+              f"launch; bound {bound_ms:.4f} ms ({bound_by}; {n_bytes / 1e6:.2f} MB, "
               f"{n_ops / 1e6:.1f} M operations)", flush=True)
-        if "ms" not in r:   # the first shape is the reported one
+        if "ms" not in r:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=None)
-            reported[name] = call
 
     for tag, imgs, orb in (("stereo 2x8 lv 1241x376", torch.stack([img_l, img_r]), orb_s),
                            ("mono 1x8 lv 640x480", img_m[None], orb_m)):
@@ -515,23 +561,58 @@ def main() -> int:
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         record("orb_desc", err, ms, plain_ms, *_orb_desc_work(det, ra), kern)
 
-    for tag, img in (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous())):
-        th = float(orb_s.min_th_fast)
+    # stereo_sad at the main path's slots: the keypoints and coarse matches
+    # of the bench pair and of the first frame of the stereo tracker phase
+    kw = slam_config_kwargs("stereo")
+    trk_pair = torch.from_numpy(np.stack(render_sequence("stereo")[1][0])).to(dev)
+    for tag, pair_lr, orb, cam in (
+            ("bench pair 1241x376", torch.stack([img_l, img_r]), orb_s, cam_s),
+            ("tracker frame 0 1241x376", trk_pair, OrbConfig(**kw["orb"]),
+             PinholeCamera(**kw["camera"]))):
+        kp = extract_orb_batch(pair_lr, orb)
+        kl, kr = (Keypoints(*[a[i] for a in kp]) for i in (0, 1))
+        m = coarse_match(kl, kr, cam, orb)
+        args = (pair_lr[0], pair_lr[1], kl.xy[:, 0].contiguous(), kl.xy[:, 1].contiguous(),
+                kr.xy[:, 0].contiguous(), m.idx)
+        got, ref = stereo_sad(*args), stereo_sad_plain(*args)
+        torch.cuda.synchronize()
+        err = max(_max_err(a, b) for a, b in zip(got, ref))
+        kern = functools.partial(stereo_sad, *args)
+        ms, plain_ms = _cuda_ms(kern), _cuda_ms(functools.partial(stereo_sad_plain, *args))
+        print(f"[3] stereo_sad {tag}: {m.idx.numel()} slots, {int(m.ok.sum())} matched: "
+              f"max|kernel-plain| {err} (u_r, best_sad); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        record("stereo_sad", err, ms, plain_ms, _stereo_sad_bytes(*args[:1], *args[2:]),
+               m.idx.numel() * STEREO_SAD_OPS, kern)
+
+    # K4 on the bench image; K5 on the bench image, the 640x480 one and a
+    # textured frame (its early test rejects a share that depends on the
+    # image: the bound counts the arc score only for the survivors)
+    th = float(orb_s.min_th_fast)
+    side_inputs = (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous()),
+                   ("tracker frame 0 1241x376", trk_pair[0].contiguous()))
+    for tag, img in side_inputs:
+        n_surv = int(fast_nms_survivors(img, th).sum())
+        area = (img.shape[0] + 2) * (img.shape[1] + 2)
         cases = [("fast_score_nms", functools.partial(fast_score_nms, img, th),
-                  functools.partial(fast_score_nms_plain, img, th), 8, FAST_SCORE_OPS + NMS_OPS)]
+                  functools.partial(fast_score_nms_plain, img, th), 8 * img.numel(),
+                  FAST_TEST_OPS * area + FAST_SCORE_OPS * n_surv + NMS_OPS * img.numel())]
         if tag == "1241x376":
             cases.insert(0, ("fast_score_nms_raw", functools.partial(fast_score_nms_raw, img, th),
-                             functools.partial(fast_score_nms_raw_plain, img, th), 16,
-                             FAST_SCORE_OPS + NMS_OPS + BLUR_OPS))
-        for name, kern, plain, bytes_px, ops_px in cases:
+                             functools.partial(fast_score_nms_raw_plain, img, th),
+                             16 * img.numel(),
+                             (FAST_SCORE_OPS + NMS_OPS + BLUR_OPS) * img.numel()))
+        for name, kern, plain, n_bytes, n_ops in cases:
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
             err = max(_max_err(g, r) for g, r in zip(got, ref))
             ms, plain_ms = _cuda_ms(kern), _cuda_ms(plain)
+            extra = (f"; early test rejects {100 * (1 - n_surv / area):.2f}% of the "
+                     f"{area} pixels of the image + 1 px" if name == "fast_score_nms" else "")
             print(f"[3] {name} {tag}: max|kernel-plain| {err} (full maps); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-            record(name, err, ms, plain_ms, bytes_px * img.numel(), ops_px * img.numel(), kern)
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
+            record(name, err, ms, plain_ms, n_bytes, n_ops, kern)
 
     g = torch.Generator(device="cpu").manual_seed(0)
     lv0 = torch.stack([img_l, img_l])  # [raw, blur]-shaped (2, H, W) stack
@@ -540,11 +621,12 @@ def main() -> int:
     xy = torch.stack([torch.randint(-8, W + 8, (2048,), generator=g),
                       torch.randint(-8, H + 8, (2048,), generator=g)], -1).to(torch.int32).to(dev)
     pad_lr = img_l.contiguous()[None]
-    # the SAD template is the reported shape: it is the path's; the ORB
-    # windows are no longer gathered on the path and stay checked
-    for tag, src, coords, ph, pw in (("sad template 2048x11x11", pad_lr, xy, 11, 11),
-                                     ("sad strip 2048x11x21", pad_lr, xy, 11, 21),
-                                     ("orb 2048x(2,39,39)", padded, xy, 39, 39)):
+    # patch_gather is on no path: its SAD template and strip are fused into
+    # stereo_sad, its ORB windows into orb_desc; the three shapes stay
+    # checked, the SAD template reported
+    gathers = ((pad_lr, xy, 11, 11), (pad_lr, xy, 11, 21), (padded, xy, 39, 39))
+    for tag, (src, coords, ph, pw) in zip(("sad template 2048x11x11", "sad strip 2048x11x21",
+                                           "orb 2048x(2,39,39)"), gathers):
         got = patch_gather(src, coords, ph, pw)
         ref = patch_gather_plain(src, coords, ph, pw)
         torch.cuda.synchronize()
@@ -556,34 +638,27 @@ def main() -> int:
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         record("patch_gather", err, ms, plain_ms, _gather_bytes(src, coords, ph, pw), 0, kern)
 
-    dev_ms = {name: _device_ms(call, KERNEL_SYMBOLS[name]) for name, call in reported.items()}
-    print("[3] device ms per launch at the reported shapes (torch.profiler, "
-          f"{TIMING_REPS} launches): " + ", ".join(
-              f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in dev_ms.items()),
-          flush=True)
-
-    # K4 and K5 are on no path of the system: their drive is one call of
-    # each public function per phase-[3] shape, and those calls' outputs are
-    # the ones held against the plain versions
+    # K4, K5 and patch_gather are on no path of the system: their drive is
+    # one call of each public function per phase-[3] shape, and those calls'
+    # outputs are the ones held against the plain versions
+    drive = [("fast_score_nms_raw", fast_score_nms_raw, fast_score_nms_raw_plain,
+              (img_l.contiguous(), th))]
+    drive += [("fast_score_nms", fast_score_nms, fast_score_nms_plain, (img, th))
+              for _, img in side_inputs]
+    drive += [("patch_gather", patch_gather, patch_gather_plain, a) for a in gathers]
     zero_counts()
-    side = {}
-    for tag, img in (("1241x376", img_l.contiguous()), ("640x480", img_m.contiguous())):
-        th = float(orb_s.min_th_fast)
-        if tag == "1241x376":
-            side["raw"] = (img, fast_score_nms_raw(img, th))
-        side[tag] = (img, fast_score_nms(img, th))
+    outs = [fn(*a) for _, fn, _, a in drive]
     launches = read_counts()
     torch.cuda.synchronize()
-    for key, (img, got) in side.items():
-        plain = fast_score_nms_raw_plain if key == "raw" else fast_score_nms_plain
-        got, ref = (got, plain(img, th)) if key == "raw" else ((got,), (plain(img, th),))
-        if max(_max_err(a, b) for a, b in zip(got, ref)) != 0.0:
-            raise AssertionError(f"the driven K4/K5 call {key} differs from its plain version")
-    print(f"[3] K4/K5 drive launches {launches}", flush=True)
-    if not (launches["fast_score_nms_raw"] == 1 and launches["fast_score_nms"] == 2):
-        raise AssertionError("the K4/K5 drive did not launch its kernels")
-    path_launches = {"fast_score_nms_raw": launches["fast_score_nms_raw"],
-                     "fast_score_nms": launches["fast_score_nms"]}
+    for (name, _, plain, a), got in zip(drive, outs):
+        got, ref = (got, plain(*a)) if name == "fast_score_nms_raw" else ((got,), (plain(*a),))
+        if max(_max_err(x, y) for x, y in zip(got, ref)) != 0.0:
+            raise AssertionError(f"the driven {name} call differs from its plain version")
+    print(f"[3] off-path drive launches {launches}", flush=True)
+    want = {k: sum(1 for d in drive if d[0] == k) for k in OFF_PATH}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the off-path drive launched {launches}, expected {want}")
+    path_launches = {k: launches[k] for k in OFF_PATH}
 
     # ---- [4]/[5] the per-frame tracking program at full size ----
     def check_inliers(name, n_in):
@@ -600,12 +675,12 @@ def main() -> int:
 
     def check_path(name, extractions, stereo):
         """The launch counts of the path just driven: one fast_pyramid and
-        one orb_desc launch per extraction, two patch_gather launches (the
-        SAD template and strip) per stereo frame and none otherwise."""
+        one orb_desc launch per extraction, one stereo_sad launch per stereo
+        frame and none otherwise, and none of the off-path kernels."""
         n = read_counts()
         print(f"    {name} path launches {n}", flush=True)
         want = dict(fast_pyramid=extractions, orb_desc=extractions,
-                    patch_gather=2 * extractions if stereo else 0)
+                    stereo_sad=extractions if stereo else 0, **dict.fromkeys(OFF_PATH, 0))
         if extractions == 0 or any(n[k] != v for k, v in want.items()):
             raise AssertionError(f"the {name} path launched {n}, expected {want}")
         return n
@@ -685,7 +760,7 @@ def main() -> int:
                  "of the host time of the frame"), flush=True)
 
     # ---- [7]-[9] the tracking front end, Tracker, per sensor ----
-    path_launches.update(fast_pyramid=0, patch_gather=0, orb_desc=0)
+    path_launches.update(fast_pyramid=0, orb_desc=0, stereo_sad=0)
     sensors = {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD, "mono": Sensor.MONOCULAR}
     for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=7):
         t0 = time.perf_counter()
@@ -701,7 +776,7 @@ def main() -> int:
         zero_counts()
         res = drive_tracker(tracker, sensor, poses, frames, sync=torch.cuda.synchronize)
         n = check_path(f"Tracker {sensor}", len(frames), stereo=sensor == "stereo")
-        for k in ("fast_pyramid", "patch_gather", "orb_desc"):
+        for k in ("fast_pyramid", "orb_desc", "stereo_sad"):
             path_launches[k] += n[k]
         ref = JAX_CPU_TRACKER[sensor]
         med = {k: (f"{statistics.median(res[k]):.3f}" if res[k] else "none")

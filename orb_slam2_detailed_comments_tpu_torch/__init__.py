@@ -6,11 +6,18 @@ computes the same thing with plain PyTorch tensors on an explicit device.
 The Pallas kernels of the per-frame tracking program are hand-written
 CUDA C++ kernels (`csrc/`), built by `ops/_kernels.py` at first use:
 
-  ops/fast_pyramid.py  + csrc/fast_pyramid.cu  FAST/NMS/raw/blur maps
+  ops/fast_pyramid.py  + csrc/fast_pyramid.cu  FAST/NMS/raw/blur maps, and
+                                               the NMS-only map (K5, with an
+                                               exact early rejection)
   ops/orb_desc.py      + csrc/orb_desc.cu      IC angle + rotated BRIEF
                                                (the ORB window gather fused
                                                with its consumer)
-  ops/patch_gather.py  + csrc/patch_gather.cu  clamped window gather (SAD)
+  ops/stereo_sad.py    + csrc/stereo_sad.cu    the stereo SAD refinement
+                                               (the SAD window gather fused
+                                               with its consumer)
+  ops/patch_gather.py  + csrc/patch_gather.cu  clamped window gather (on no
+                                               path: both its call sites are
+                                               fused)
 
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor.

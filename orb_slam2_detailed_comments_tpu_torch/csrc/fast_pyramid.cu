@@ -51,8 +51,31 @@
 // fast_nms_kernel replaces fast_score_nms_pallas (K5, body _fast_nms_kernel):
 // the ring is read from an EDGE (clamped) halo, the thresholded score of the
 // tile + 1 px is NOT zeroed in the 3-px border before the NMS, and only the
-// NMS output, border zeroed, is written. It stages a 32x16 tile + 4-px halo
-// in shared memory and shares the arc-score tree with the pyramid kernel.
+// NMS output, border zeroed, is written. Its one output needs the score
+// only where it exceeds the threshold, and that is decided exactly before
+// the score (early rejection): the score is > th iff some arc of 9
+// contiguous ring samples has every fl(p - c) > th (bright) or every
+// fl(p - c) < -th (dark; fl(c - p) = -fl(p - c)), and every arc of 9 holds
+// two cardinal samples 4 apart (ring indices 0/4, 4/8, 8/12, 12/0). A pixel
+// with no such pair passing in one polarity therefore has thresholded
+// score exactly 0: 4 subtractions and 8 compares decide it, against the 162
+// operations of the score. What bounds K5 is the score's FMNMX rate (the
+// same per-pixel work as the pyramid kernel's arc score), so the redesign
+// spends it only on the survivors, gathered densely: the block stages a
+// 32x16 tile + 4-px halo in shared memory (1 barrier), each thread tests its
+// pixels of the tile + 1 px, writes 0 for the rejected ones and appends the
+// survivors to a list in shared memory (one __ballot_sync and one atomicAdd
+// a warp, 1 barrier), then the threads take the list in order and write the
+// survivors' thresholded scores (1 barrier), and the 3x3 NMS reads the
+// score tile. A warp thus runs the score's min tree once per 32 survivors,
+// not once per 32 pixels of which any one survives. The output is the
+// same, bit for bit: the rejected pixels' thresholded score is 0 either
+// way. ops/fast_pyramid.py::fast_nms_survivors is the same test in torch.
+// Measured (tools/fast_nms_variants.py): without the arc score at all the
+// kernel takes ~0.007 ms at 1241x376, the latency of staging, testing and
+// three barriers; the score of the survivors adds to that in proportion to
+// their share (about a third of the pixels of bench.py's image, 2% of a
+// textured frame's); larger or smaller tiles were no faster.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -265,25 +288,66 @@ __device__ __forceinline__ float nms_at(const float (&score_s)[CH][CW], int ly, 
   return (c > 0.f && c > earlier && c >= later) ? c : 0.f;
 }
 
+// True unless the staged pixel (sy, sx) has thresholded score exactly 0 by
+// the cardinal test (see the note at the top of the file).
+__device__ __forceinline__ bool may_pass(const float (&img_s)[SH][SW], int sy, int sx,
+                                         float th) {
+  const float c = img_s[sy][sx];
+  const float d0 = __fsub_rn(img_s[sy + ring_dy(0)][sx + ring_dx(0)], c);
+  const float d4 = __fsub_rn(img_s[sy + ring_dy(4)][sx + ring_dx(4)], c);
+  const float d8 = __fsub_rn(img_s[sy + ring_dy(8)][sx + ring_dx(8)], c);
+  const float d12 = __fsub_rn(img_s[sy + ring_dy(12)][sx + ring_dx(12)], c);
+  const bool b0 = d0 > th, b4 = d4 > th, b8 = d8 > th, b12 = d12 > th;
+  const bool k0 = d0 < -th, k4 = d4 < -th, k8 = d8 < -th, k12 = d12 < -th;
+  return (b0 && b4) || (b4 && b8) || (b8 && b12) || (b12 && b0) ||
+         (k0 && k4) || (k4 && k8) || (k8 && k12) || (k12 && k0);
+}
+
 // One 32x16 output tile of one (H, W) image per block (grid = tiles in x, y).
-__global__ void __launch_bounds__(NT)
+// At most 40 registers a thread (no spills), so three blocks fit an SM: the
+// kernel is latency-bound, and at its natural 49 registers (two blocks an
+// SM) it took 10-12% longer (tools/fast_nms_variants.py).
+__global__ void __launch_bounds__(NT, 3)
 fast_nms_kernel(const float* __restrict__ img, int H, int W, float threshold,
                 float* __restrict__ nms) {
   __shared__ float img_s[SH][SW];
   __shared__ float score_s[CH][CW];
+  __shared__ short survivors[CH * CW];
+  __shared__ int n_survivors;
 
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const int tid = threadIdx.y * TW + threadIdx.x;
+  const int lane = tid & 31;
 
   // 1) tile + halo, edge-clamped at the image edge
   for (int i = tid; i < SH * SW; i += NT) {
     const int ly = i / SW, lx = i % SW;
     img_s[ly][lx] = img[clamp_index(y0 - HALO + ly, H) * W + clamp_index(x0 - HALO + lx, W)];
   }
+  if (tid == 0) n_survivors = 0;
   __syncthreads();
 
-  // 2) thresholded score of the tile + 1 px, border included
-  for (int i = tid; i < CH * CW; i += NT) {
+  // 2) the early test over the tile + 1 px: 0 for the rejected pixels, the
+  // others appended to the survivor list (every warp runs every round, so
+  // the ballots see full warps)
+  for (int base = 0; base < CH * CW; base += NT) {
+    const int i = base + tid;
+    const int cy = i / CW, cx = i % CW;
+    const bool in = i < CH * CW;
+    const bool pass = in && may_pass(img_s, cy + HALO - 1, cx + HALO - 1, threshold);
+    if (in && !pass) score_s[cy][cx] = 0.f;
+    const unsigned m = __ballot_sync(0xffffffffu, pass);
+    int first = 0;
+    if (lane == 0 && m) first = atomicAdd(&n_survivors, __popc(m));
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (pass) survivors[first + __popc(m & ((1u << lane) - 1u))] = static_cast<short>(i);
+  }
+  __syncthreads();
+
+  // 3) thresholded score of the survivors
+  const int n = n_survivors;
+  for (int k = tid; k < n; k += NT) {
+    const int i = survivors[k];
     const int cy = i / CW, cx = i % CW;
     const float r = ring_score(img_s, cy + HALO - 1, cx + HALO - 1);
     score_s[cy][cx] = r > threshold ? r : 0.f;
@@ -292,7 +356,7 @@ fast_nms_kernel(const float* __restrict__ img, int H, int W, float threshold,
 
   const int gy = y0 + threadIdx.y, gx = x0 + threadIdx.x;
   if (gy >= H || gx >= W) return;
-  // 3) 3x3 NMS, then the 3-px border zeroed
+  // 4) 3x3 NMS, then the 3-px border zeroed
   const bool inb = gy >= 3 && gy < H - 3 && gx >= 3 && gx < W - 3;
   nms[gy * W + gx] = inb ? nms_at(score_s, threadIdx.y, threadIdx.x) : 0.f;
 }

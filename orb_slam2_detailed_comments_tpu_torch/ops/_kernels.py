@@ -36,6 +36,8 @@ _SIGNATURES = {
     # n_levels, img[], blur[], H[], W[], counts[], xy, valid, px, py, B, N, r,
     # angle, desc, stream
     "orb_desc_launch": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # img_l, img_r, H, W, xl, yl, xr, M, idx, N, u_r, best_sad, stream
+    "stereo_sad_launch": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P),
 }
 
 

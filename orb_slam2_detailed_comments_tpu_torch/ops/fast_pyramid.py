@@ -23,7 +23,10 @@ one (H, W) image (K4, fast_score_nms_raw_pallas).
 semantics of its own: the ring is read from an EDGE pad, the thresholded
 score is not zeroed in the 3-px border before the NMS (so a border score
 can suppress a pixel of the ring y in {3, H-4}, x in {3, W-4}), the border
-is zeroed after it, and there is no raw or blur output.
+is zeroed after it, and there is no raw or blur output. Its kernel
+decides before the score which pixels can pass the threshold
+(`fast_nms_survivors`, an exact test on four ring samples) and computes the
+score only for those.
 
 For CUDA tensors each launches a kernel of csrc/fast_pyramid.cu (the
 pyramid kernel once for all images x levels, or the NMS-only kernel); for
@@ -39,7 +42,7 @@ import functools
 import torch
 
 from . import _kernels
-from .fast import fast_score_dense, fast_score_map, nms_3x3
+from .fast import RING_OFFSETS, fast_score_dense, fast_score_map, nms_3x3
 from .pyramid import _gauss_kernel_1d, edge_pad, gaussian_blur, reflect101_index
 
 RING_R = 3                # FAST ring radius
@@ -84,6 +87,30 @@ def fast_score_nms_plain(img, threshold: float):
     xs = torch.arange(W, device=img.device)[None, :]
     inb = (ys >= RING_R) & (ys < H - RING_R) & (xs >= RING_R) & (xs < W - RING_R)
     return torch.where(inb, nms, 0.0)
+
+
+CARDINALS = (0, 4, 8, 12)   # ring indices of K5's early test
+
+
+def fast_nms_survivors(img, threshold: float):
+    """K5's early test, the pixels whose score its kernel computes: of the
+    image plus a 1-px ring, (H + 2, W + 2), with the ring read from the 4-px
+    edge pad as fast_score_nms_plain reads it, those where two adjacent
+    cardinal ring samples (indices 0/4, 4/8, 8/12, 12/0) both have
+    fl(p - c) > threshold, or both fl(p - c) < -threshold. Every arc of 9
+    contiguous ring samples holds such a pair, so every other pixel has a
+    score <= threshold: its thresholded score is exactly 0."""
+    H, W = img.shape
+    halo = RING_R + 1
+    pad = edge_pad(img, halo, halo)
+    c = pad[RING_R:H + halo + 1, RING_R:W + halo + 1]
+    d = [pad[RING_R + dy:H + halo + 1 + dy, RING_R + dx:W + halo + 1 + dx] - c
+         for dy, dx in RING_OFFSETS[list(CARDINALS)]]
+    out = torch.zeros_like(c, dtype=torch.bool)
+    for k in range(4):
+        a, b = d[k], d[(k + 1) % 4]
+        out |= ((a > threshold) & (b > threshold)) | ((a < -threshold) & (b < -threshold))
+    return out
 
 
 _GAUSS = (ctypes.c_float * 7)(*map(float, _gauss_kernel_1d(7, 2.0)))

@@ -5,8 +5,10 @@ replacement of Frame::ComputeStereoMatches, reference: src/Frame.cc:
 880-1176, and ComputeStereoFromRGBD, :1179-1215): a masked (N_left x
 N_right) Hamming match with row-band, octave-window and disparity masks,
 an 11x11 SAD refinement over +-5 px, parabolic sub-pixel interpolation and
-the median-SAD outlier cut. The template and strip windows come from the
-patch_gather kernel.
+the median-SAD outlier cut. The SAD refinement is one call of
+ops/stereo_sad.py::stereo_sad (a CUDA kernel on the card), which reads the
+template and strip windows from the images in place: no padded image and
+no window tensor is made.
 
 The median-SAD cut is ported as the JAX package runs it: jnp.median
 propagates NaN and every unmatched slot is NaN, so whenever any slot is
@@ -23,11 +25,8 @@ import torch
 from .hamming import hamming_distance_matrix
 from .matching import masked_best_match
 from .orb import Keypoints
-from .patch_gather import patch_gather
-from .pyramid import edge_pad
+from .stereo_sad import stereo_sad
 
-SAD_HALF = 5   # 11x11 window (reference: Frame.cc w=5)
-SLIDE = 5      # +-5 px search (reference: Frame.cc L=5)
 TH_STEREO = 100  # ORBmatcher::TH_HIGH used for the coarse match
 
 
@@ -43,11 +42,11 @@ def median_sad_cut(best_sad, ok):
     return ok & (best_sad <= 2.1 * med)
 
 
-def stereo_match(kp_l: Keypoints, kp_r: Keypoints, img_l, img_r, cam,
-                 orb) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Match left keypoints to the right image; returns (u_right, depth),
-    both (N,) float32 with -1 where unmatched."""
-    dev = img_l.device
+def coarse_match(kp_l: Keypoints, kp_r: Keypoints, cam, orb):
+    """The coarse L/R match (a MatchResult): each left keypoint's best right
+    keypoint by Hamming distance within the row band, octave window and
+    disparity range."""
+    dev = kp_l.xy.device
     sf = orb.scale_factor
     scale_r = torch.tensor([sf ** i for i in range(orb.n_levels)], dtype=torch.float32,
                            device=dev)[kp_r.octave.long()]
@@ -67,48 +66,21 @@ def stereo_match(kp_l: Keypoints, kp_r: Keypoints, img_l, img_r, cam,
     mask = kp_l.valid[:, None] & kp_r.valid[None, :] & row_ok & lvl_ok & disp_ok
 
     dist = hamming_distance_matrix(kp_l.desc, kp_r.desc)
-    m = masked_best_match(dist, mask, TH_STEREO)
+    return masked_best_match(dist, mask, TH_STEREO)
+
+
+def stereo_match(kp_l: Keypoints, kp_r: Keypoints, img_l, img_r, cam,
+                 orb) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Match left keypoints to the right image; returns (u_right, depth),
+    both (N,) float32 with -1 where unmatched."""
+    m = coarse_match(kp_l, kp_r, cam, orb)
+    xl = kp_l.xy[:, 0]
+    min_d = 0.0
+    max_d = cam.bf / max(cam.baseline, 1e-6)
 
     # ---- SAD sub-pixel refine on the full-resolution image ----
-    H, W = img_l.shape
-    xl_i = torch.clamp(torch.round(xl).to(torch.int32), 0, W - 1)
-    yl_i = torch.clamp(torch.round(yl).to(torch.int32), 0, H - 1)
-    xr_best = xr[m.idx.long()]
-    xr_i = torch.clamp(torch.round(xr_best).to(torch.int32), 0, img_r.shape[1] - 1)
-
-    # windows centred on (x, y) of the edge-padded images: the top-left in
-    # the padded frame is the centre in the unpadded one (dynamic_slice of
-    # the JAX package's _gather_patch)
-    G = SAD_HALF + SLIDE
-    pad_l = edge_pad(img_l, SAD_HALF, G)
-    pad_r = edge_pad(img_r, SAD_HALF, G)
-    tmpl = patch_gather(pad_l[None].contiguous(),
-                        torch.stack([xl_i + SLIDE, yl_i], -1).contiguous(),
-                        2 * SAD_HALF + 1)[:, 0]                              # (N, 11, 11)
-    strip = patch_gather(pad_r[None].contiguous(),
-                         torch.stack([xr_i, yl_i], -1).contiguous(),
-                         2 * SAD_HALF + 1, 2 * G + 1)[:, 0]                  # (N, 11, 21)
-
-    # normalize by center intensity like the reference (Frame.cc:1020-1033)
-    tmpl = tmpl - tmpl[:, SAD_HALF, SAD_HALF][:, None, None]
-    strip = strip - strip[:, SAD_HALF, SAD_HALF + SLIDE][:, None, None]
-
-    sads = torch.stack([
-        torch.sum(torch.abs(tmpl - strip[:, :, o:o + 2 * SAD_HALF + 1]), dim=(1, 2))
-        for o in range(2 * SLIDE + 1)], dim=-1)                              # (N, 11)
-    best_off = torch.argmin(sads, dim=-1)          # first minimum, as jnp.argmin
-    best_sad = sads.gather(1, best_off[:, None])[:, 0]
-
-    # parabola sub-pixel (reference: Frame.cc:1070-1083)
-    om = torch.clamp(best_off, 1, 2 * SLIDE - 1)
-    s_m1 = sads.gather(1, (om - 1)[:, None])[:, 0]
-    s_0 = sads.gather(1, om[:, None])[:, 0]
-    s_p1 = sads.gather(1, (om + 1)[:, None])[:, 0]
-    denom = s_m1 + s_p1 - 2.0 * s_0
-    delta = torch.where(torch.abs(denom) > 1e-6,
-                        (s_m1 - s_p1) / (2.0 * torch.clamp(denom, min=1e-6)), 0.0)
-    delta = torch.clamp(delta, -1.0, 1.0)
-    u_r = xr_i.to(torch.float32) + (om - SLIDE).to(torch.float32) + delta
+    u_r, best_sad = stereo_sad(img_l, img_r, xl.contiguous(), kp_l.xy[:, 1].contiguous(),
+                               kp_r.xy[:, 0].contiguous(), m.idx)
 
     disparity = xl - u_r
     ok = m.ok & (disparity > min_d) & (disparity < max_d)
