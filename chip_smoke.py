@@ -23,6 +23,19 @@ device time and its bound. Then it drives the port at full size:
           keyframes and the ATE against the rendered ground truth (held
           against the JAX Tracker's anchors below), and the median ms per
           fused and per staged frame.
+  [10]-[12] `System(..., enable_loop_closing=False)` per sensor on the same
+          frames (local mapping and relocalization, the shipped vocabulary):
+          the mapped frames, SYS_BLANK blank frames that must leave it LOST,
+          and up to SYS_REVISITS revisits of frame SYS_REVISIT_FRAME's view.
+          It checks frames tracked, the LOST outcome, the revisit that
+          relocalizes, live keyframes and map points and the ATE against
+          the JAX System's anchors, prints ms per keyframe frame, other
+          frame and relocalization attempt, the tracker's and the local
+          mapper's stages (local-BA solve per bucket), and asserts that no
+          local-BA solve syncs with the host (torch's sync debug mode).
+  [13]    local BA on a synthetic problem at each bucket: ms per solve, CUDA
+          kernels and host syncs per solve (asserted 0), and two solves of
+          one problem bit-identical (asserted).
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
@@ -44,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -57,7 +71,7 @@ JAX_CPU_INLIERS = {
     "fused_mono_frame": 283,
 }
 INLIER_RTOL = 0.02
-N_FRAMES = 20
+N_FRAMES = 10
 TIMING_REPS = 50
 POSE_TOL_M, POSE_TOL_DEG = 0.01, 0.1
 PAD_SLOTS = 8192  # the production local-map pad (frontend/device_map.py)
@@ -98,6 +112,40 @@ JAX_CPU_TRACKER = {
 }
 TRACK_COUNT_TOL = 1
 ATE_RTOL, ATE_ATOL_M = 0.10, 0.002
+
+# ---- the System phases --------------------------------------------------------
+# System(..., enable_loop_closing=False) with the shipped vocabulary on the
+# tracker phases' frames, then SYS_BLANK blank frames and up to SYS_REVISITS
+# revisits of frame SYS_REVISIT_FRAME's view (drive_system).
+SYS_BLANK = 3
+SYS_REVISITS = 4
+SYS_REVISIT_FRAME = 12
+# The JAX package's System on the same frames (drive_system), run on the
+# CPU in the modes of JAX_CPU_TRACKER, jax 0.9.0, by `JAX_PLATFORMS=cpu
+# python tests/torch_parity.py system` (jax_system_anchor). Limits: frames
+# tracked, the LOST outcome and the revisit that relocalizes (None: none
+# did) exact; live keyframes within SYS_KF_TOL; live map points within
+# SYS_MP_RTOL; ATE within ATE_RTOL of the anchor or SYS_ATE_ATOL_M,
+# whichever is larger. SYS_ATE_ATOL_M is the tracker phases' ATE_ATOL_M,
+# except mono's: the JAX package's own mono phase, with +-1e-3 grey levels
+# of noise on its images (seeds 1-4, chip_smoke.perturbed_run;
+# `tests/torch_parity.py system mono noise1 noise2 noise3 noise4`), lands
+# at 24.433, 17.118, 20.520 and 20.332 mm against its anchor's 28.397, so
+# up to 11.279 mm from it; the port on the card under the same seeds lands
+# at 16.500-21.162 mm (tools/system_devices.py). Monocular mapping at this
+# size is chaotic: its keyframes and map points move too (4-6 and 709-852
+# in the JAX package's five runs).
+JAX_CPU_SYSTEM = {
+    "stereo": dict(tracked=30, lost=True, relocalized=None, keyframes=6, map_points=1367,
+                   ate_m=0.00823005233723447),
+    "rgbd": dict(tracked=30, lost=True, relocalized=0, keyframes=28, map_points=930,
+                 ate_m=0.008151105497309867),
+    "mono": dict(tracked=25, lost=True, relocalized=None, keyframes=4, map_points=709,
+                 ate_m=0.02839745149811372),
+}
+SYS_KF_TOL = 1
+SYS_MP_RTOL = 0.05
+SYS_ATE_ATOL_M = {"stereo": ATE_ATOL_M, "rgbd": ATE_ATOL_M, "mono": 0.0113}
 
 # ---- bounds: NVIDIA's H100 SXM data sheet at 700 W -----------------------------
 HBM_BYTES_PER_S = 3.35e12
@@ -416,6 +464,107 @@ def render_sequence(sensor):
     return poses, frames
 
 
+PERTURB_GREY = 1e-3
+
+
+def perturbed_run(sensor, spec):
+    """The inputs of a System phase changed by nothing of substance, for
+    reading how far a System's counts and ATE move under such a change
+    (tests/torch_parity.py system, tools/system_devices.py). `spec`:
+    None (the phase's own frames), "noise<seed>" (every image plus seeded
+    uniform noise of +-PERTURB_GREY grey levels, far below the images'
+    1-level quantization; depth maps untouched) or "staged" (the frames
+    as they are, tracked on the staged path instead of the fused one).
+    Returns (poses, frames, use_fused)."""
+    poses, frames = render_sequence(sensor)
+    if spec is None or spec == "staged":
+        return poses, frames, spec is None
+    if not spec.startswith("noise"):
+        raise ValueError(f"unknown perturbation {spec!r}")
+    rng = np.random.default_rng(int(spec[len("noise"):]))
+    n_img = 2 if sensor == "stereo" else 1
+    frames = [tuple((a + rng.uniform(-PERTURB_GREY, PERTURB_GREY, a.shape)).astype(np.float32)
+                    if k < n_img else a for k, a in enumerate(f)) for f in frames]
+    return poses, frames, True
+
+
+BA_CAM = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=40.0, width=640, height=480)
+
+
+def _rotation(w):
+    """Rodrigues: rotation vector (3,) -> (3, 3)."""
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def synthetic_ba_problem(bucket, seed=0, fill=0.9, outlier_share=0.03):
+    """A seeded local-BA problem padded to `bucket` = (C, P, E), a bucket of
+    backend/local_mapping.BA_BUCKETS, as numpy arrays named as BAProblem's
+    fields. C - 2 cameras 0.25 m apart in a sideways row look at `fill` * P points 4-12 m
+    away (BA_CAM intrinsics); each point is seen by 2-4 of the cameras that
+    see it, in point-major edge order (one seen by fewer is not valid); half the edges are stereo; the
+    observations carry 0.5 px of noise and about `outlier_share` of them
+    15-30 px more. The first two cameras are fixed; the free ones and the points
+    start from a perturbed estimate."""
+    C, P, E = bucket
+    rng = np.random.default_rng(seed)
+    n_cams, n_pts = C - 2, int(fill * P)
+    f, cx, cy, bf = BA_CAM["fx"], BA_CAM["cx"], BA_CAM["cy"], BA_CAM["bf"]
+    cam_Tcw = np.tile(np.eye(4), (C, 1, 1))
+    for c in range(n_cams):
+        R = _rotation(rng.normal(0, 0.02, 3))
+        cam_Tcw[c, :3, :3] = R
+        cam_Tcw[c, :3, 3] = -R @ np.array([0.25 * c, rng.normal(0, 0.05), 0.0])
+    span = 0.25 * n_cams
+    X = np.stack([rng.uniform(-2.0, span + 2.0, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                  rng.uniform(4.0, 12.0, n_pts)], -1)
+    pc = np.einsum("cij,pj->pci", cam_Tcw[:n_cams, :3, :3], X) + cam_Tcw[:n_cams, :3, 3]
+    u = f * pc[..., 0] / pc[..., 2] + cx
+    v = f * pc[..., 1] / pc[..., 2] + cy
+    seen = (pc[..., 2] > 0) & (u >= 0) & (u < BA_CAM["width"]) & (v >= 0) & (v < BA_CAM["height"])
+    # each point: 2-4 random cameras among those that see it (a point seen
+    # by fewer than two is left out)
+    key = np.where(seen, rng.random(seen.shape), 2.0)
+    order = np.argsort(key, axis=1)
+    n_obs = np.minimum(rng.integers(2, 5, n_pts), seen.sum(1))
+    n_obs[n_obs < 2] = 0
+    take = np.arange(n_cams)[None, :] < n_obs[:, None]
+    e_pt, slot = np.nonzero(take)
+    e_cam = order[e_pt, slot]
+    n_e = min(e_pt.size, E)
+    e_pt, e_cam = e_pt[:n_e], e_cam[:n_e]
+    obs = np.stack([u[e_pt, e_cam], v[e_pt, e_cam], u[e_pt, e_cam] - bf / pc[e_pt, e_cam, 2]], -1)
+    obs += rng.normal(0, 0.5, obs.shape)
+    # at most one outlier a point, and only on points seen 3-4 times: the
+    # gated outlier must not leave a point with a single edge
+    bad = (rng.random(n_e) < outlier_share) & (n_obs[e_pt] >= 3) & (slot[:n_e] == 0)
+    obs[bad, :2] += rng.uniform(15, 30, (int(bad.sum()), 2)) * rng.choice([-1, 1], (int(bad.sum()), 2))
+    obs[rng.random(n_e) < 0.5, 2] = -1.0
+    init = cam_Tcw.copy()
+    for c in range(2, n_cams):
+        init[c, :3, :3] = _rotation(rng.normal(0, 0.002, 3)) @ init[c, :3, :3]
+        init[c, :3, 3] += rng.normal(0, 0.01, 3)
+    points = np.zeros((P, 3))
+    points[:n_pts] = X + rng.normal(0, 0.03, X.shape)
+
+    def pad(a, n, dtype):
+        out = np.zeros((n,) + a.shape[1:], dtype)
+        out[:len(a)] = a
+        return out
+
+    return dict(
+        cam_Tcw=init.astype(np.float32), cam_free=np.arange(C) >= 2,
+        cam_valid=np.arange(C) < n_cams, points=points.astype(np.float32),
+        point_valid=pad(n_obs > 0, P, bool), edge_cam=pad(e_cam, E, np.int32),
+        edge_point=pad(e_pt, E, np.int32), edge_obs=pad(obs, E, np.float32),
+        edge_octave=pad(rng.integers(0, 4, n_e), E, np.int32),
+        edge_valid=np.arange(E) < n_e)
+
+
 def slam_config_kwargs(sensor):
     """Keyword arguments of SlamConfig, OrbConfig and PinholeCamera (the
     same fields in both packages) for a tracker phase."""
@@ -455,6 +604,70 @@ def drive_tracker(tracker, sensor, poses, frames, sync=lambda: None):
                 ms_fused=ms_fused, ms_staged=ms_staged)
 
 
+def drive_system(slam, sensor, poses, frames, sync=lambda: None):
+    """Drive a System (either package's) through the three parts of a
+    System phase: the SEQ_FRAMES mapped frames, SYS_BLANK blank frames
+    (black images, zero depth), which must leave it LOST, and up to
+    SYS_REVISITS revisits of frame SYS_REVISIT_FRAME's view, as
+    tests/test_relocalization.py does. Returns the counts the phases are
+    held to (frames tracked, LOST after the blanks, the revisit that
+    relocalized, keyframes and map points alive at the end, the ATE of the
+    mapped frames against the rendered ground truth) and the host ms of
+    each keyframe frame, non-keyframe frame and relocalization attempt."""
+    from orb_slam2_detailed_comments_tpu_torch.evaluation.ate import ate_rmse
+    entry = getattr(slam, {"stereo": "track_stereo", "rgbd": "track_rgbd",
+                           "mono": "track_monocular"}[sensor])
+    fps = TRACK_SEQS[sensor]["fps"]
+    reloc_ms = []
+    relocalizer = slam.tracker.relocalizer
+
+    def timed_relocalizer(frame):
+        t0 = time.perf_counter()
+        ok = relocalizer(frame)
+        sync()
+        reloc_ms.append(1e3 * (time.perf_counter() - t0))
+        return ok
+
+    if relocalizer is not None:
+        slam.tracker.relocalizer = timed_relocalizer
+    est, gt, ms_kf, ms_other = [], [], [], []
+
+    def feed(args, ts):
+        n_kf = slam.map.n_kf
+        t0 = time.perf_counter()
+        Tcw = entry(*args, ts)
+        sync()
+        (ms_kf if slam.map.n_kf > n_kf else ms_other).append(1e3 * (time.perf_counter() - t0))
+        return Tcw if Tcw is not None and slam.tracking_state.name == "OK" else None
+
+    for i, args in enumerate(frames):
+        Tcw = feed(args, i / fps)
+        if Tcw is not None:
+            est.append(np.linalg.inv(Tcw)[:3, 3])
+            gt.append(np.linalg.inv(poses[i])[:3, 3])
+    if len(est) < 3:
+        raise AssertionError(f"{sensor}: only {len(est)} frames tracked")
+    ate = ate_rmse(np.asarray(est, np.float64), np.asarray(gt, np.float64),
+                   with_scale=sensor == "mono")
+    blank = tuple(np.zeros_like(a) for a in frames[0])
+    for j in range(SYS_BLANK):
+        feed(blank, (len(frames) + j) / fps)
+    lost = slam.tracking_state.name == "LOST"
+    relocalized, reloc_err_m = None, None
+    for j in range(SYS_REVISITS):
+        Tcw = feed(frames[SYS_REVISIT_FRAME], (len(frames) + SYS_BLANK + j) / fps)
+        if Tcw is not None:
+            relocalized = j
+            reloc_err_m = float(np.linalg.norm(np.linalg.inv(Tcw)[:3, 3]
+                                               - np.linalg.inv(poses[SYS_REVISIT_FRAME])[:3, 3]))
+            break
+    slam.tracker.relocalizer = relocalizer
+    return dict(tracked=len(est), lost=lost, relocalized=relocalized, positions=np.asarray(est),
+                keyframes=int(slam.map.n_keyframes()), map_points=int(slam.map.n_map_points()),
+                ate_m=ate, reloc_err_m=reloc_err_m, ms_kf=ms_kf, ms_other=ms_other,
+                reloc_ms=reloc_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -479,7 +692,11 @@ def main() -> int:
     from orb_slam2_detailed_comments_tpu_torch.ops.pyramid import build_pyramid, edge_pad
     from orb_slam2_detailed_comments_tpu_torch.ops.stereo import coarse_match
     from orb_slam2_detailed_comments_tpu_torch.ops.stereo_sad import stereo_sad, stereo_sad_plain
+    from orb_slam2_detailed_comments_tpu_torch.backend import local_mapping as LM
+    from orb_slam2_detailed_comments_tpu_torch.optim.local_ba import (
+        BAProblem, local_bundle_adjustment)
     from orb_slam2_detailed_comments_tpu_torch.state.map_store import MapStore
+    from orb_slam2_detailed_comments_tpu_torch.system import System
     from orb_slam2_detailed_comments_tpu_torch.utils.config import OrbConfig, SlamConfig
 
     t_start = time.perf_counter()
@@ -800,6 +1017,103 @@ def main() -> int:
             raise AssertionError(f"{sensor}: ATE {res['ate_m']} m, JAX {ref['ate_m']} m")
         if sensor != "mono" and res["fused"] == 0:
             raise AssertionError(f"{sensor}: the fused path never ran")
+
+    # ---- [10]-[12] System: local mapping and relocalization, per sensor ----
+    def count_syncs(fn, *a, **k):
+        """fn's result and the host syncs it made, counted by torch's sync
+        debug mode (a warning per synchronizing call)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    if count_syncs(lambda: torch.ones(1, device=dev).item())[1] < 1:
+        raise AssertionError("the sync count does not see an .item()")
+    solves = []   # (cameras of the bucket, syncs) per local-BA solve of the System phases
+
+    def counted_solve(prob, *a, **k):
+        out, n_sync = count_syncs(local_bundle_adjustment, prob, *a, **k)
+        solves.append((prob.cam_Tcw.shape[0], n_sync))
+        return out
+
+    LM.local_bundle_adjustment = counted_solve
+    for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=10):
+        poses, frames = render_sequence(sensor)
+        kw = slam_config_kwargs(sensor)
+        cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
+                         fps=kw["fps"], th_depth=kw["th_depth"])
+        slam = System(cfg, sensors[sensor], enable_loop_closing=False, device=dev)
+        n_solves = len(solves)
+        zero_counts()
+        res = drive_system(slam, sensor, poses, frames, sync=torch.cuda.synchronize)
+        n_fed = len(frames) + SYS_BLANK + (SYS_REVISITS if res["relocalized"] is None
+                                           else res["relocalized"] + 1)
+        n = check_path(f"System {sensor}", n_fed, stereo=sensor == "stereo")
+        for k in ("fast_pyramid", "orb_desc", "stereo_sad"):
+            path_launches[k] += n[k]
+        ref = JAX_CPU_SYSTEM[sensor]
+        med = {k: (f"{statistics.median(res[k]):.3f} ({len(res[k])})" if res[k] else "none")
+               for k in ("ms_kf", "ms_other", "reloc_ms")}
+        err = "none" if res["reloc_err_m"] is None else f"{1e3 * res['reloc_err_m']:.3f} mm"
+        print(f"[{phase}] System {sensor}: tracked {res['tracked']}/{SEQ_FRAMES} "
+              f"(JAX {ref['tracked']}), LOST after the blank frames {res['lost']} "
+              f"(JAX {ref['lost']}), relocalized on revisit {res['relocalized']} "
+              f"(JAX {ref['relocalized']}; pose error {err}), "
+              f"keyframes {res['keyframes']} (JAX {ref['keyframes']}), map points "
+              f"{res['map_points']} (JAX {ref['map_points']}), ATE {1e3 * res['ate_m']:.3f} mm "
+              f"(JAX {1e3 * ref['ate_m']:.3f} mm)", flush=True)
+        print(f"[{phase}] System {sensor} median ms per keyframe frame {med['ms_kf']}, per "
+              f"other frame {med['ms_other']}, per relocalization attempt {med['reloc_ms']}",
+              flush=True)
+        for name, timer in (("tracker", slam.tracker.timer), ("local mapper", slam.local_mapper.timer)):
+            print(f"[{phase}] System {sensor} {name} stages, median ms (count): " + ", ".join(
+                f"{k} {v['median_ms']:.3f} ({v['count']})"
+                for k, v in sorted(timer.summary().items())), flush=True)
+        phase_solves = solves[n_solves:]
+        print(f"[{phase}] System {sensor}: {len(phase_solves)} local-BA solves, buckets "
+              f"{sorted({c for c, _ in phase_solves})} cameras, host syncs per solve "
+              f"{sorted({s for _, s in phase_solves})}", flush=True)
+        if any(s for _, s in phase_solves):
+            raise AssertionError(f"{sensor}: a local-BA solve synced with the host")
+        if res["tracked"] != ref["tracked"] or res["lost"] != ref["lost"] \
+                or res["relocalized"] != ref["relocalized"]:
+            raise AssertionError(f"System {sensor}: {res}, JAX {ref}")
+        if abs(res["keyframes"] - ref["keyframes"]) > SYS_KF_TOL:
+            raise AssertionError(f"System {sensor}: keyframes {res['keyframes']}, JAX {ref}")
+        if abs(res["map_points"] - ref["map_points"]) > SYS_MP_RTOL * ref["map_points"]:
+            raise AssertionError(f"System {sensor}: map points {res['map_points']}, JAX {ref}")
+        if abs(res["ate_m"] - ref["ate_m"]) > max(ATE_RTOL * ref["ate_m"],
+                                                  SYS_ATE_ATOL_M[sensor]):
+            raise AssertionError(f"System {sensor}: ATE {res['ate_m']} m, JAX {ref['ate_m']} m")
+        if not phase_solves:
+            raise AssertionError(f"System {sensor}: local BA never ran")
+    LM.local_bundle_adjustment = local_bundle_adjustment
+
+    # ---- [13] local BA per bucket on synthetic problems ----
+    inv_s2 = torch.tensor([1.0 / 1.2 ** (2 * i) for i in range(8)], dtype=torch.float32,
+                          device=dev)
+    ba_cam = PinholeCamera(**BA_CAM)
+    for bucket in LM.BA_BUCKETS:
+        d = synthetic_ba_problem(bucket, seed=0)
+        prob = BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in d.items()})
+        solve = functools.partial(local_bundle_adjustment, prob, ba_cam, inv_s2)
+        first, n_sync = count_syncs(solve)
+        again, ms_solve = _frame_ms(solve, n=5)
+        n_kernels, busy = _profile_frame(solve)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"[13] local BA bucket {bucket}: {int(d['edge_valid'].sum())} edges, "
+              f"{int(d['point_valid'].sum())} points; {ms_solve:.3f} ms per solve (median of 5), "
+              f"{n_kernels} CUDA kernels, device busy "
+              f"{'not measured' if busy is None else f'{100 * busy:.2f}%'}, {n_sync} host syncs; "
+              f"two solves bit-identical {same}; inliers {int(first[2].sum())}", flush=True)
+        if n_sync or not same:
+            raise AssertionError(f"local BA bucket {bucket}: {n_sync} syncs, identical {same}")
+        if not bool(torch.isfinite(first[0]).all() & torch.isfinite(first[1]).all()):
+            raise AssertionError(f"local BA bucket {bucket}: non-finite result")
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

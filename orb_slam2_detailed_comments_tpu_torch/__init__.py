@@ -22,7 +22,9 @@ CUDA C++ kernels (`csrc/`), built by `ops/_kernels.py` at first use:
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain PyTorch version for a CPU tensor.
 
-Ported so far (the main path): models/slam_step.py and everything it runs.
+Ported so far: system.py's System with loop closing off (the tracker,
+local mapping, relocalization) and everything it runs; its modules beyond
+the tracking program are plain PyTorch.
 """
 
 __version__ = "0.1.0"

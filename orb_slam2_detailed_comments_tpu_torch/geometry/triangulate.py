@@ -6,6 +6,7 @@ src/Initializer.cc Triangulate; src/LocalMapping.cc:516-530).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,3 +43,26 @@ def triangulate_dlt(P1, P2, uv1, uv2):
     w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
     return x[..., :3] / w[..., None]
 
+
+
+def triangulate_dlt_np(P1, P2, uv1, uv2):
+    """Host (numpy) twin of triangulate_dlt for the call sites whose batch
+    size depends on the data (local mapping's per-neighbor epipolar
+    matches): a few hundred 4x4 eigendecompositions, not worth a device
+    round trip."""
+    P1 = np.broadcast_to(P1, uv1.shape[:-1] + (3, 4))
+    P2 = np.broadcast_to(P2, uv2.shape[:-1] + (3, 4))
+    rows = [
+        uv1[..., 0:1] * P1[..., 2, :] - P1[..., 0, :],
+        uv1[..., 1:2] * P1[..., 2, :] - P1[..., 1, :],
+        uv2[..., 0:1] * P2[..., 2, :] - P2[..., 0, :],
+        uv2[..., 1:2] * P2[..., 2, :] - P2[..., 1, :],
+    ]
+    A = np.stack(rows, axis=-2).astype(np.float32)
+    A = A / (np.linalg.norm(A, axis=-1, keepdims=True) + 1e-12)
+    AtA = np.swapaxes(A, -1, -2) @ A
+    _, vecs = np.linalg.eigh(AtA)
+    x = vecs[..., :, 0]
+    w = x[..., 3]
+    w = np.where(np.abs(w) < 1e-12, 1e-12, w)
+    return x[..., :3] / w[..., None]

@@ -82,3 +82,26 @@ def map_store_from_jax(ms):
             v = type(v)(v)
         setattr(out, name, v)
     return out
+
+
+def vocabulary_from_jax(voc, device="cuda"):
+    """A JAX BinaryVocabulary or TreeVocabulary -> the port's, holding
+    copies of its arrays."""
+    from .place.vocabulary import BinaryVocabulary
+    from .place.vocabulary_tree import TreeVocabulary
+    if hasattr(voc, "node_desc"):
+        return TreeVocabulary(voc.k, voc.L, voc.node_desc.copy(), voc.node_children.copy(),
+                              voc.node_parent.copy(), voc.node_word.copy(),
+                              voc.word_weight.copy(), voc.word_node.copy())
+    return BinaryVocabulary(voc.words.copy(), voc.idf.copy(), device)
+
+
+def kf_database_from_jax(db, voc):
+    """A JAX KeyFrameDatabase -> the port's over `voc` (the port's
+    vocabulary), holding copies of its bags and inverted index."""
+    from .place.kf_database import KeyFrameDatabase
+    out = KeyFrameDatabase(voc, db.KF_CAP, db.W_CAP)
+    for name in ("kf_words", "kf_weights", "kf_n_words", "active"):
+        setattr(out, name, getattr(db, name).copy())
+    out.inv = {w: list(lst) for w, lst in db.inv.items()}
+    return out

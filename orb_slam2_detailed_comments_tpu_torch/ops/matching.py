@@ -1,10 +1,10 @@
 """Projection-guided descriptor matching.
 
-Counterpart of the part of orb_slam2_detailed_comments_tpu/ops/matching.py
-that the tracking front end runs: the replacements of
-ORBmatcher::SearchByProjection (reference: src/ORBmatcher.cc:69-184), of
-SearchByBoW's role (brute-force matching, :248-419) and of
-SearchForInitialization (:570-722). The full masked Hamming matrix, every
+Counterpart of orb_slam2_detailed_comments_tpu/ops/matching.py without
+its unused helpers: the replacements of ORBmatcher::SearchByProjection
+(reference: src/ORBmatcher.cc:69-184), of SearchByBoW's role (brute-force
+matching, :248-419), of SearchForInitialization (:570-722) and of
+SearchForTriangulation (:879-1096). The full masked Hamming matrix, every
 candidate policy expressed as a boolean mask, best/second-best with the
 ratio test, the rotation histogram, and one source per target. Ties go to
 the lower index, as jnp.argmin and lax.top_k break them.
@@ -202,3 +202,47 @@ def search_by_projection(proj: ProjectedPoints, desc_p, kp_xy, kp_ur, desc_k,
     m = masked_best_match(dist, mask, max_dist, ratio, ratio_same_level_only=True,
                           octave_b=octave_k)
     return resolve_duplicate_targets(m, kp_xy.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Epipolar-constrained matching for triangulation
+# (reference: ORBmatcher::SearchForTriangulation, ORBmatcher.cc:879-1096,
+#  with CheckDistEpipolarLine :206-233).
+# ---------------------------------------------------------------------------
+
+def search_for_triangulation(xy1, desc1, valid1, octave1, angle1, has_mp1,
+                             xy2, desc2, valid2, octave2, angle2, has_mp2,
+                             F12, epipole2_uv, sigma2_levels):
+    """Match unmatched keypoints of KF1 to KF2 along the epipolar line,
+    with the rotation check (the JAX package's check_rotation=True, the
+    value every caller uses).
+
+    F12: (3,3) fundamental matrix mapping KF1 pixels to epipolar lines in
+    KF2. epipole2_uv: (2,) projection of KF1's center in KF2 (candidates
+    too close to it are rejected, reference :975-984).
+    sigma2_levels: (n_levels,) per-level sigma^2.
+    """
+    ones = torch.ones_like(xy1[:, :1])
+    x1h = torch.cat([xy1, ones], dim=-1)  # (N1, 3)
+    lines = x1h @ F12.T  # (N1, 3) epipolar lines in image 2
+    a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
+    num = a * xy2[None, :, 0] + b * xy2[None, :, 1] + c  # (N1, N2)
+    den2 = a * a + b * b
+    dsq = num * num / torch.clamp(den2, min=1e-12)
+    # chi2 threshold 3.84 * sigma^2 of the observation level (reference :228-232)
+    s2 = sigma2_levels[octave2.long()]
+    epi_ok = dsq < 3.84 * s2[None, :]
+    # reject kp2 near the epipole (reference :981: 100 sigma^2 on the
+    # squared distance)
+    de = torch.sum((xy2 - epipole2_uv[None, :]) ** 2, dim=-1)
+    far_from_epipole = de >= 100.0 * s2
+
+    mask = (
+        valid1[:, None] & valid2[None, :]
+        & (~has_mp1)[:, None] & (~has_mp2)[None, :]
+        & epi_ok & far_from_epipole[None, :]
+    )
+    dist = hamming_distance_matrix(desc1, desc2)
+    m = masked_best_match(dist, mask, TH_LOW, 0.0)
+    m = MatchResult(m.idx, m.dist, rotation_consistency(angle1, angle2[m.idx.long()], m.ok))
+    return resolve_duplicate_targets(m, xy2.shape[0])

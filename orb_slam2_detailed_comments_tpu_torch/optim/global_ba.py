@@ -1,0 +1,182 @@
+"""Global bundle adjustment via matrix-free preconditioned CG on the
+Schur-reduced camera system.
+
+Counterpart of the flat small-map solve of
+orb_slam2_detailed_comments_tpu/optim/global_ba.py, the replacement of
+Optimizer::BundleAdjustment / GlobalBundleAdjustemnt [sic] (reference:
+src/Optimizer.cc:62-361). The Schur complement S = Hcc - A Hpp^-1 A^T is
+never materialized: its matvec is three edge-parallel passes, so PCG with
+a block-Jacobi (6x6 Hcc) preconditioner runs out of edge arrays.
+
+The JAX package's scatter-adds over edges are products with one-hot
+(cameras x edges) and (points x edges) matrices here: sums in a fixed
+order, no atomics, so a solve is deterministic. The matrices are
+(P, E) floats; the caller (backend/local_mapping.solve_global_ba) keeps E
+below 4096. The iteration counts are fixed and the LM acceptance is a
+torch.where, so a solve makes no host sync.
+
+Shares the BAProblem edge-list format with local_ba.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..geometry.se3 import exp_se3, se3_renormalize
+from .local_ba import BAProblem, _edge_terms, _inv3x3, _stereo_row_mask, edge_chi2
+from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
+
+
+def _robust_cost(cam_Tcw, points, prob: BAProblem, active, cam_params,
+                 inv_sigma2_levels, use_kernel: bool):
+    """Total robust objective: sum of Huber rho(chi2) over active edges
+    (g2o's activeRobustChi2(), which LM uses for step acceptance)."""
+    chi2, behind = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
+    if use_kernel:
+        is_stereo = prob.edge_obs[:, 2] >= 0.0
+        delta2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
+        chi2 = torch.where(chi2 <= delta2, chi2,
+                           2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0)) - delta2)
+    return torch.sum(torch.where(active & ~behind, chi2, 0.0))
+
+
+def _assemble(cam_Tcw, points, prob: BAProblem, active, cam_params,
+              inv_sigma2_levels, use_kernel: bool, damping, oh_c, oh_p):
+    """Per-iteration linearization: returns (Hcc_d, Hpp_inv, Y, g_c, g_p)."""
+    C = cam_Tcw.shape[0]
+    P = points.shape[0]
+    r, J_cam, J_pt, behind = _edge_terms(cam_Tcw, points, prob, cam_params)
+
+    is_stereo, row_mask = _stereo_row_mask(prob)
+    inv_s2 = inv_sigma2_levels[prob.edge_octave.long()]
+    rw = r * row_mask
+    chi2 = torch.sum(rw * rw, dim=-1) * inv_s2
+    delta = torch.where(is_stereo, DELTA_STEREO, DELTA_MONO)
+    w = huber_weight(chi2, delta) if use_kernel else torch.ones_like(chi2)
+    w = torch.where(active & ~behind, w * inv_s2, 0.0)
+
+    Jc = J_cam * row_mask[:, :, None]
+    Jp = J_pt * row_mask[:, :, None]
+
+    Hcc = (oh_c @ torch.einsum("eri,erj,e->eij", Jc, Jc, w).reshape(-1, 36)).reshape(C, 6, 6)
+    Hpp = (oh_p @ torch.einsum("eri,erj,e->eij", Jp, Jp, w).reshape(-1, 9)).reshape(P, 3, 3)
+    g_c = oh_c @ torch.einsum("eri,er,e->ei", Jc, rw, w)
+    g_p = oh_p @ torch.einsum("eri,er,e->ei", Jp, rw, w)
+    Y = torch.einsum("eri,erj,e->eij", Jc, Jp, w)  # (E, 6, 3)
+
+    eye3 = torch.eye(3, device=points.device)
+    eye6 = torch.eye(6, device=points.device)
+    tr_p = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
+    tr_c = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    Hpp_d = Hpp + damping * (tr_p[:, None, None] / 3.0 + 1e-6) * eye3
+    Hcc_d = Hcc + damping * (tr_c[:, None, None] / 6.0 + 1e-6) * eye6
+    return Hcc_d, _inv3x3(Hpp_d), Y, g_c, g_p
+
+
+def _schur_matvec(x, Hcc_d, Hpp_inv, Y, edge_cam, edge_point, free_mask, oh_c, oh_p):
+    """S x = Hcc x - A Hpp^-1 A^T x, all edge-parallel."""
+    x = x * free_mask[:, None]
+    u = torch.einsum("cij,cj->ci", Hcc_d, x)
+    v = oh_p @ torch.einsum("eij,ei->ej", Y, x[edge_cam])          # A^T x
+    wv = torch.einsum("pij,pj->pi", Hpp_inv, v)                    # Hpp^-1 A^T x
+    u = u - oh_c @ torch.einsum("eij,ej->ei", Y, wv[edge_point])
+    return u * free_mask[:, None]
+
+
+def _pcg(matvec, b, Minv, n_iters: int):
+    """Fixed-iteration preconditioned CG."""
+    x = torch.zeros_like(b)
+    r = b
+    z = torch.einsum("cij,cj->ci", Minv, r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(n_iters):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(pAp) < 1e-20, 1e-20, pAp)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = torch.einsum("cij,cj->ci", Minv, r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+def _gba_iteration(cam_Tcw, points, prob: BAProblem, active, cam_params,
+                   inv_sigma2_levels, use_kernel, damping, cg_iters, oh_c, oh_p):
+    Hcc_d, Hpp_inv, Y, g_c, g_p = _assemble(
+        cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
+        use_kernel, damping, oh_c, oh_p)
+    free = (prob.cam_free & prob.cam_valid).float()
+    e_cam, e_pt = prob.edge_cam.long(), prob.edge_point.long()
+
+    # rhs: -(g_c - A Hpp^-1 g_p)
+    hg = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
+    rhs = -(g_c - oh_c @ torch.einsum("eij,ej->ei", Y, hg[e_pt]))
+    rhs = rhs * free[:, None]
+
+    eye6 = torch.eye(6, device=points.device)
+    Minv = torch.linalg.inv_ex(Hcc_d + (1.0 - free)[:, None, None] * eye6).inverse
+    dc = _pcg(lambda x: _schur_matvec(x, Hcc_d, Hpp_inv, Y, e_cam, e_pt, free, oh_c, oh_p),
+              rhs, Minv, cg_iters)
+
+    # back-substitute points: dp = -Hpp^-1 (g_p + A^T dc)
+    atdc = oh_p @ torch.einsum("eij,ei->ej", Y, dc[e_cam])
+    dp = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + atdc)
+
+    dc = dc * free[:, None]
+    cam_new = exp_se3(dc) @ cam_Tcw
+    dp = torch.where(prob.point_valid[:, None], dp, 0.0)
+    return cam_new, points + dp
+
+
+def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
+                             n_iters: int = 10, cg_iters: int = 50,
+                             damping: float = 1e-5):
+    """LM iterations with PCG-Schur inner solves (the reference runs 10 or
+    20 LM iterations for global BA, Optimizer.cc:80 / Tracking.cc:1089).
+    Robust kernel active on the first half of the iterations only. A step
+    is accepted only if it does not increase the robust objective; a
+    rejected one raises the damping (g2o's Levenberg rollback)."""
+    C = prob.cam_Tcw.shape[0]
+    P = prob.points.shape[0]
+    dev = prob.points.device
+    cam_params = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+    is_stereo = prob.edge_obs[:, 2] >= 0.0
+    chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
+    oh_c = (prob.edge_cam.long()[None, :] == torch.arange(C, device=dev)[:, None]).float()
+    oh_p = (prob.edge_point.long()[None, :] == torch.arange(P, device=dev)[:, None]).float()
+
+    def lm_phase(n, cam_Tcw, points, active, use_kernel):
+        lam = torch.full((), damping, dtype=torch.float32, device=dev)   # no host copy
+        c_cur = _robust_cost(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
+                             use_kernel)
+        for _ in range(n):
+            cand_c, cand_p = _gba_iteration(
+                cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
+                use_kernel, lam, cg_iters, oh_c, oh_p)
+            c_new = _robust_cost(cand_c, cand_p, prob, active, cam_params,
+                                 inv_sigma2_levels, use_kernel)
+            accept = c_new <= c_cur
+            cam_Tcw = torch.where(accept, cand_c, cam_Tcw)
+            points = torch.where(accept, cand_p, points)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                              torch.clamp(lam * 8.0, max=1e2))
+            c_cur = torch.where(accept, c_new, c_cur)
+        return cam_Tcw, points
+
+    n_pre = max(n_iters // 2, 1)
+    cam_Tcw, points = lm_phase(n_pre, prob.cam_Tcw, prob.points, prob.edge_valid, True)
+
+    # chi2-gate outliers before dropping the robust kernel (the reference
+    # erases outlier edges between its two optimize() calls,
+    # Optimizer.cc:916-935)
+    chi2_mid, behind_mid = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
+    active = prob.edge_valid & (chi2_mid <= chi2_th) & ~behind_mid
+    cam_Tcw, points = lm_phase(n_iters - n_pre, cam_Tcw, points, active, False)
+
+    cam_Tcw = se3_renormalize(cam_Tcw)
+    chi2, behind = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
+    inlier = prob.edge_valid & (chi2 <= chi2_th) & ~behind
+    return cam_Tcw, points, inlier

@@ -424,6 +424,12 @@ def test_port_entry_modules_import_no_jax():
             "import orb_slam2_detailed_comments_tpu_torch.models.slam_step\n"
             "import orb_slam2_detailed_comments_tpu_torch.ops.orb_desc\n"
             "import orb_slam2_detailed_comments_tpu_torch.ops.stereo_sad\n"
+            "import orb_slam2_detailed_comments_tpu_torch.system\n"
+            "import orb_slam2_detailed_comments_tpu_torch.interop\n"
+            "import orb_slam2_detailed_comments_tpu_torch.backend.device_kf\n"
+            "import orb_slam2_detailed_comments_tpu_torch.optim.global_ba\n"
+            "import orb_slam2_detailed_comments_tpu_torch.place.vocabulary_tree\n"
+            "import orb_slam2_detailed_comments_tpu_torch.io.trajectory\n"
             "bad = [m for m in ('jax', 'orb_slam2_detailed_comments_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

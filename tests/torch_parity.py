@@ -110,44 +110,180 @@ def perturbed_pose(delta=(0.01, -0.005, 0.02, 0.002, -0.001, 0.0015)):
     return exp_se3(torch.tensor(delta, dtype=torch.float64)).float().numpy()
 
 
-def jax_tracker_anchor(sensor):
-    """The JAX package's Tracker on chip_smoke.py's rendered full-size
-    sequence for `sensor` ("stereo", "rgbd" or "mono"), with the fused path
-    on (ORB_FUSED_TRACK=1) in the exact modes: the source of chip_smoke.py's
-    JAX_CPU_TRACKER anchors. About 1.5 min and 3 GB per sensor on the CPU."""
+@contextlib.contextmanager
+def _jax_fused_exact():
+    """The JAX package with the fused path on (ORB_FUSED_TRACK=1, the
+    port's default) in the exact modes, for the block."""
+    old = os.environ.get("ORB_FUSED_TRACK")
+    os.environ["ORB_FUSED_TRACK"] = "1"
+    try:
+        with jax_exact_modes():
+            yield
+    finally:
+        if old is None:
+            os.environ.pop("ORB_FUSED_TRACK")
+        else:
+            os.environ["ORB_FUSED_TRACK"] = old
+
+
+def _sequence(sensor):
+    """chip_smoke.py's rendered sequence for `sensor` and the JAX package's
+    SlamConfig and Sensor for it."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
-    from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor, Tracker
+    from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor
     from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
-    from orb_slam2_detailed_comments_tpu.state.map_store import MapStore
     from orb_slam2_detailed_comments_tpu.utils.config import OrbConfig, SlamConfig
 
     poses, frames = chip_smoke.render_sequence(sensor)
     kw = chip_smoke.slam_config_kwargs(sensor)
     cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
                      fps=kw["fps"], th_depth=kw["th_depth"])
-    old = os.environ.get("ORB_FUSED_TRACK")
-    os.environ["ORB_FUSED_TRACK"] = "1"
-    try:
-        with jax_exact_modes():
-            tracker = Tracker(cfg, MapStore(cfg), {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD,
-                                                   "mono": Sensor.MONOCULAR}[sensor])
-            res = chip_smoke.drive_tracker(tracker, sensor, poses, frames)
-    finally:
-        if old is None:
-            os.environ.pop("ORB_FUSED_TRACK")
-        else:
-            os.environ["ORB_FUSED_TRACK"] = old
+    sensor_enum = {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD, "mono": Sensor.MONOCULAR}[sensor]
+    return chip_smoke, poses, frames, cfg, sensor_enum
+
+
+def jax_tracker_anchor(sensor):
+    """The JAX package's Tracker on chip_smoke.py's rendered full-size
+    sequence for `sensor` ("stereo", "rgbd" or "mono"), with the fused path
+    on (ORB_FUSED_TRACK=1) in the exact modes: the source of chip_smoke.py's
+    JAX_CPU_TRACKER anchors. About 1.5 min and 3 GB per sensor on the CPU."""
+    from orb_slam2_detailed_comments_tpu.frontend.tracking import Tracker
+    from orb_slam2_detailed_comments_tpu.state.map_store import MapStore
+
+    chip_smoke, poses, frames, cfg, sensor_enum = _sequence(sensor)
+    with _jax_fused_exact():
+        res = chip_smoke.drive_tracker(Tracker(cfg, MapStore(cfg), sensor_enum), sensor,
+                                       poses, frames)
     return {k: res[k] for k in ("tracked", "fused", "keyframes", "ate_m")}
 
 
-if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu python tests/torch_parity.py [sensor ...]: print the
-    # anchors of chip_smoke.py's tracker phases
-    import sys
+def jax_system_anchor(sensor, perturb=None):
+    """The JAX package's System(..., enable_loop_closing=False) with the
+    shipped vocabulary on chip_smoke.py's System phase for `sensor`: the
+    rendered sequence, blank frames and revisits (chip_smoke.drive_system),
+    with the fused path on in the exact modes. The source of chip_smoke.py's
+    JAX_CPU_SYSTEM anchors; with `perturb` (chip_smoke.perturbed_run: "staged"
+    or "noise<seed>") the same phase changed by nothing of substance, the
+    source of its spread. About 2.5-5 min and 3 GB per sensor on the CPU."""
+    from orb_slam2_detailed_comments_tpu.system import System
+
+    chip_smoke, _, _, cfg, sensor_enum = _sequence(sensor)
+    poses, frames, use_fused = chip_smoke.perturbed_run(sensor, perturb)
+    with _jax_fused_exact():
+        slam = System(cfg, sensor_enum, enable_loop_closing=False)
+        slam.tracker.use_fused = use_fused
+        res = chip_smoke.drive_system(slam, sensor, poses, frames)
+    return {k: res[k] for k in ("tracked", "lost", "relocalized", "keyframes", "map_points",
+                                "ate_m")}
+
+
+def _xla_levels():
+    """Make the port's predict_scale_level take its log from XLA on the CPU
+    (the JAX package's), to show which differences its ties make
+    (ROADMAP.md C.8). For replay_local_mapper only; never undone."""
     import jax
+    import jax.numpy as jnp
+    import torch
+    from orb_slam2_detailed_comments_tpu_torch.ops import matching as TM
+
+    xla_log = jax.jit(jnp.log)
+
+    def predict_scale_level(dist, max_dist, n_levels, log_scale):
+        ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-9), min=1e-9)
+        lg = torch.from_numpy(np.array(xla_log(ratio.cpu().numpy()))).to(ratio.device)
+        return torch.clamp(torch.ceil(lg / log_scale).to(torch.int32), 0, n_levels - 1)
+
+    TM.predict_scale_level = predict_scale_level
+
+
+def replay_local_mapper(sensor, first=1, last=12, xla_levels=False):
+    """The JAX package's System on chip_smoke.py's System phase for
+    `sensor` (as jax_system_anchor), with its LocalMapper calls first..last
+    replayed stage by stage through the port's LocalMapper on the CPU: each
+    port stage starts from the JAX state before that stage and ends held
+    against the JAX state after it. Prints, per call and stage, the map
+    points live in one package only, the keypoint associations that differ
+    and the largest point distance. With `xla_levels` the port predicts
+    scale levels with XLA's log (_xla_levels). About 3 min and 3 GB on the
+    CPU."""
+    from orb_slam2_detailed_comments_tpu.system import System
+    from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import LocalMapper
+    from orb_slam2_detailed_comments_tpu_torch.interop import (map_store_from_jax,
+                                                               slam_config_from_jax)
+
+    if xla_levels:
+        _xla_levels()
+    chip_smoke, poses, frames, cfg, sensor_enum = _sequence(sensor)
+    tcfg = slam_config_from_jax(cfg)
+    entry = {"stereo": "track_stereo", "rgbd": "track_rgbd", "mono": "track_monocular"}[sensor]
+    with _jax_fused_exact():
+        slam = System(cfg, sensor_enum, enable_loop_closing=False)
+        jm = slam.local_mapper
+        on_new_keyframe, n_call = jm.on_new_keyframe, [0]
+
+        def replay(kf, run_ba=True):
+            n_call[0] += 1
+            if not first <= n_call[0] <= last:
+                return on_new_keyframe(kf, run_ba)
+            jm.kf_counter += 1
+            fresh = jm.map.kf_mp[kf]
+            fresh = fresh[fresh >= 0]
+            jm.recent_points.extend(int(m) for m in fresh[jm.map.mp_first_kf[fresh] == kf])
+            ba = run_ba and jm.map.n_keyframes() > 2
+            stages = [("culling", "_map_point_culling"),
+                      ("triangulation", "_create_new_map_points"),
+                      ("fusion", "_search_in_neighbors")] + [("local BA", "local_ba")] * ba \
+                + [("keyframe culling", "_keyframe_culling")]
+            line = []
+            for name, method in stages:
+                before, recent = map_store_from_jax(jm.map), list(jm.recent_points)
+                getattr(jm, method)(kf)
+                after = map_store_from_jax(jm.map)
+                port = LocalMapper(tcfg, before, monocular=sensor == "mono", device="cpu")
+                port.recent_points = recent
+                getattr(port, method)(kf)
+                t = port.map
+                live = t.mp_valid & after.mp_valid
+                dx = np.linalg.norm(t.mp_pos[live] - after.mp_pos[live], axis=1)
+                line.append(f"{name} {int((t.mp_valid != after.mp_valid).sum())}/"
+                            f"{int((t.kf_mp != after.kf_mp).sum())}/"
+                            f"{dx.max() if dx.size else 0.0:.1e}")
+            print(f"call {n_call[0]} (keyframe {kf}), points live in one package only/"
+                  f"associations that differ/largest point distance (m): " + "; ".join(line),
+                  flush=True)
+
+        jm.on_new_keyframe = replay
+        for i, args in enumerate(frames):
+            getattr(slam, entry)(*args, i / chip_smoke.TRACK_SEQS[sensor]["fps"])
+            if n_call[0] >= last:
+                break
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py [tracker|system] [sensor ...]
+    #     [staged|noise<seed> ...]:
+    # print the anchors of chip_smoke.py's tracker phases or System phases,
+    # or with perturbations (System only) the System phase under each;
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py replay SENSOR [FIRST LAST]
+    #     [xla-levels]: replay_local_mapper
+    import sys
+    from pathlib import Path
+    import jax
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     jax.config.update("jax_platforms", "cpu")
-    for s in sys.argv[1:] or ["stereo", "rgbd", "mono"]:
-        print(s, jax_tracker_anchor(s), f"jax {jax.__version__}", flush=True)
+    args = sys.argv[1:]
+    if args[:1] == ["replay"]:
+        replay_local_mapper(args[1], *(int(a) for a in args[2:] if a.isdigit()),
+                            xla_levels="xla-levels" in args)
+        sys.exit(0)
+    system = args[:1] == ["system"]
+    args = [a for a in args if a not in ("tracker", "system")]
+    perturbs = [a for a in args if a == "staged" or a.startswith("noise")]
+    sensors = [a for a in args if a not in perturbs] or ["stereo", "rgbd", "mono"]
+    for s in sensors:
+        for p in perturbs or [None]:
+            res = jax_system_anchor(s, p) if system else jax_tracker_anchor(s)
+            print(s, *([p] if p else []), res, f"jax {jax.__version__}", flush=True)
