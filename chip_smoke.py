@@ -36,13 +36,36 @@ device time and its bound. Then it drives the port at full size:
   [13]    local BA on a synthetic problem at each bucket: ms per solve, CUDA
           kernels and host syncs per solve (asserted 0), and two solves of
           one problem bit-identical (asserted).
+  [14]    the grouped global BA: (a) the stereo System's whole map after
+          [10] through build_global_ba_problem and solve_global_ba (the
+          path it took, E against FLAT_GBA_MAX_EDGES), held against the
+          flat solver on the same problem; (b) examples/bench_gba.py's
+          problem (1408 cameras, 60k points, 360,448 edges): ms per solve
+          and per GN iteration, CUDA kernels, host syncs (asserted 0), peak
+          device memory, two solves bit-identical (asserted), the route
+          through solve_global_ba, and the final robust cost held within
+          GBA_COST_RTOL of the JAX package's on the CPU (JAX_CPU_GBA).
+  [15]    System(..., enable_loop_closing=False), monocular, with
+          configs/KITTI04-12.yaml (1226x370, 2000 features) on a rendered
+          sequence: it must initialize and track MONO_KITTI_TRACKED frames
+          after; it prints the initialization's global-BA edges and path,
+          then runs the whole map's global BA (ROADMAP.md C.9).
+  [16]    loop closing's solvers: Sim3 RANSAC and optimize_sim3 on seeded
+          loop matches (300, 30% outliers; free and fixed scale), which
+          must recover the rotation within 0.1 deg and the scale within
+          1%; optimize_pose_graph on examples/bench_pose_graph.py's circle
+          graphs (POSE_GRAPH_CASES: K=1408 auto (banded), K=256 auto
+          (dense), K=1408 cg), each cutting the mean edge error and the
+          mean translation error at least 100x; ms, host syncs and CUDA
+          kernels of each.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
 fast_pyramid and one orb_desc launch and each stereo frame one stereo_sad
 launch (the other sensors none), and no path launched patch_gather,
 fast_score_nms_raw or fast_score_nms: those three are on no path and are
-driven once per [3] shape instead. The line
+driven once per [3] shape instead. [14] and [16] run no image and launch
+no kernel (asserted). The line
 before the last is the per-kernel JSON (launches, errors, times, bounds);
 the last is {"ok": true, "device": {...}}. There is no CPU path: without a
 CUDA device the script fails. It imports neither jax nor the JAX package,
@@ -58,8 +81,11 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
+
+REPO = Path(__file__).resolve().parent
 
 # Inlier counts of the JAX package (orb_slam2_detailed_comments_tpu) on
 # bench.py's own inputs, run on the CPU with ORB_DESC_ONEHOT=0 (the exact
@@ -97,6 +123,14 @@ TRACK_SEQS = {
                    n_features=2000, fps=10.0, th_depth=35.0, tex_scale=32.0),
     "rgbd": dict(cam=_TUM1, n_features=1000, fps=30.0, th_depth=40.0, tex_scale=48.0),
     "mono": dict(cam=_TUM1, n_features=1000, fps=30.0, th_depth=40.0, tex_scale=48.0),
+    # [15]: configs/KITTI04-12.yaml's camera (2000 features, the YAML's own
+    # settings). At this width the 2048-px texture allows 32 px per unit
+    # at most; with its default 4,000 blobs the monocular initialization
+    # never keeps 100 points, with the 12,000 of tests/synthetic_world.py's
+    # CylinderWorld it initializes on frame 4 (the port on the CPU)
+    "mono_kitti": dict(cam=dict(fx=707.0912, fy=707.0912, cx=601.8873, cy=183.1104,
+                                bf=379.8145, width=1226, height=370),
+                       tex_scale=32.0, n_blobs=12000),
 }
 # The JAX package's Tracker on the same frames, run on the CPU with
 # ORB_FUSED_TRACK=1, ORB_DESC_ONEHOT=0, ORB_FAST_PALLAS=0 and
@@ -249,6 +283,10 @@ def _frame_ms(fn, n=N_FRAMES):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return out, statistics.median(times)
+
+
+def _share(busy):
+    return "not measured" if busy is None else f"{100 * busy:.2f}%"
 
 
 def _max_err(a, b):
@@ -432,7 +470,8 @@ def _check_on_texture(world, poses):
 @functools.lru_cache(maxsize=None)
 def render_sequence(sensor):
     """(poses (N, 4, 4) world->camera, frames: the argument tuples of the
-    tracker's entry point without the timestamp)."""
+    tracker's entry point without the timestamp) for the TRACK_SEQS entry
+    `sensor` (monocular unless "stereo" or "rgbd")."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent / "tests" / "synthetic_world.py"
@@ -440,9 +479,12 @@ def render_sequence(sensor):
     synthetic_world = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(synthetic_world)
     PlanesWorld = synthetic_world.PlanesWorld
-    c = TRACK_SEQS[sensor]["cam"]
+    seq = TRACK_SEQS[sensor]
+    c = seq["cam"]
     world = PlanesWorld(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], width=c["width"],
-                        height=c["height"], tex_scale=TRACK_SEQS[sensor]["tex_scale"])
+                        height=c["height"], tex_scale=seq["tex_scale"])
+    if "n_blobs" in seq:
+        world.tex = synthetic_world.make_texture(n_blobs=seq["n_blobs"])
     poses = smooth_trajectory(SEQ_FRAMES)
     baseline = c["bf"] / c["fx"]
     _check_on_texture(world, poses)
@@ -563,6 +605,139 @@ def synthetic_ba_problem(bucket, seed=0, fill=0.9, outlier_share=0.03):
         edge_point=pad(e_pt, E, np.int32), edge_obs=pad(obs, E, np.float32),
         edge_octave=pad(rng.integers(0, 4, n_e), E, np.int32),
         edge_valid=np.arange(E) < n_e)
+
+
+# ---- loop closing's solvers ([14], [16]; numpy, no jax) ----------------------
+
+# examples/bench_gba.py's default problem: 11 KITTI sequences x 128
+# keyframes, 60k points, 256 observations a keyframe (~360k edges)
+GBA_BENCH = dict(n_cams=1408, n_points=60000, obs_per_cam=256)
+GBA_CAM = dict(fx=718.0, fy=718.0, cx=607.0, cy=185.0)
+GBA_INV_S2 = np.array([1.0 / 1.2 ** (2 * i) for i in range(8)], np.float32)
+# The JAX package's grouped global BA on the same problem, run on the CPU
+# (its exact-float32 "gather" formulation, 10 LM x 50 CG, jax 0.9.0) by
+# `JAX_PLATFORMS=cpu python tests/torch_parity.py gba` (jax_gba_anchor): the
+# robust cost over all edges before and after. [14] holds the port's final
+# cost within GBA_COST_RTOL of it, and its solve of the stereo System's map
+# against the flat solver within the JAX package's own grouped-against-flat
+# tolerances (tests/test_global_ba_grouped.py:101-104).
+JAX_CPU_GBA = dict(edges=360448, cost_before=2032548352.0, cost_after=134502.96875)
+GBA_COST_RTOL = 0.01
+GBA_CAM_TOL, GBA_PT_TOL = 2e-3, 2e-2
+# [15]: the mono System at configs/KITTI04-12.yaml must initialize and track
+# this many of the rendered frames after the one it initialized on
+MONO_KITTI_TRACKED = 10
+# [16]: (keyframes, backend, GN iterations) as examples/bench_pose_graph.py
+# runs them (KITTI-00's ~1400 keyframes; 20 iterations for the banded solve)
+POSE_GRAPH_CASES = ((1408, "auto", 20), (256, "auto", 10), (1408, "cg", 10))
+
+
+def gba_bench_problem(n_cams, n_points, obs_per_cam, seed=0):
+    """A numpy copy of examples/bench_scaling.py::build_problem (the same
+    draws in the same order), as numpy arrays named as BAProblem's fields:
+    cameras on a long noisy forward path, each observing obs_per_cam random
+    points (monocular, 0.5 px of noise); the first two cameras fixed, the
+    points perturbed by 5 cm."""
+    rng = np.random.default_rng(seed)
+    cams = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    cams[:, 0, 3] = -np.cumsum(rng.uniform(0.5, 1.5, n_cams)).astype(np.float32)
+    pts = rng.uniform([-50, -10, 5], [50, 10, 80], (n_points, 3)).astype(np.float32)
+    E = n_cams * obs_per_cam
+    e_cam = np.repeat(np.arange(n_cams, dtype=np.int32), obs_per_cam)
+    e_pt = rng.integers(0, n_points, E).astype(np.int32)
+    fx, fy, cx, cy = GBA_CAM["fx"], GBA_CAM["fy"], GBA_CAM["cx"], GBA_CAM["cy"]
+    pc = np.einsum("eij,ej->ei", cams[e_cam, :3, :3], pts[e_pt]) + cams[e_cam, :3, 3]
+    pc[:, 2] = np.abs(pc[:, 2]) + 1.0
+    u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, 0.5, E)
+    v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.5, E)
+    e_obs = np.stack([u, v, np.full(E, -1.0)], -1).astype(np.float32)
+    return dict(
+        cam_Tcw=cams, cam_free=np.asarray([False, False] + [True] * (n_cams - 2)),
+        cam_valid=np.ones(n_cams, bool),
+        points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+        point_valid=np.ones(n_points, bool), edge_cam=e_cam, edge_point=e_pt, edge_obs=e_obs,
+        edge_octave=np.zeros(E, np.int32), edge_valid=np.ones(E, bool))
+
+
+def _small_sim3(xi):
+    """exp_sim3 of a drift-sized tangent: a numpy copy of
+    examples/bench_pose_graph.py's (Rodrigues, exp of the scale, V to
+    second order)."""
+    rho, phi, sigma = xi[:3], xi[3:6], xi[6]
+    th = np.linalg.norm(phi)
+    Wm = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]], [-phi[1], phi[0], 0]])
+    if th < 1e-8:
+        R = np.eye(3) + Wm
+    else:
+        R = np.eye(3) + np.sin(th) / th * Wm + (1 - np.cos(th)) / th ** 2 * (Wm @ Wm)
+    S = np.eye(4)
+    S[:3, :3] = np.exp(sigma) * R
+    S[:3, 3] = (np.eye(3) + 0.5 * (Wm + sigma * np.eye(3))) @ rho
+    return S.astype(np.float32)
+
+
+def circle_pose_graph(Kn, seed=7, drift=0.01, covis_every=4):
+    """A numpy copy of examples/bench_pose_graph.py::circle_problem:
+    keyframes on a 50 m circle, a drifted odometry chain, one loop edge and
+    a covisibility edge every `covis_every` keyframes, all measurements
+    exact. Returns (fields of PoseGraphProblem as numpy arrays, S_true,
+    S_est)."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(Kn) / Kn
+    c, s = np.cos(ang), np.sin(ang)
+    R_all = np.zeros((Kn, 3, 3))
+    R_all[:, 0, 0], R_all[:, 0, 2], R_all[:, 1, 1] = c, s, 1.0
+    R_all[:, 2, 0], R_all[:, 2, 2] = -s, c
+    C_all = 50.0 * np.stack([s, np.zeros(Kn), 1 - c], -1)
+    S_true = np.tile(np.eye(4), (Kn, 1, 1))
+    S_true[:, :3, :3] = R_all
+    S_true[:, :3, 3] = -np.einsum("kij,kj->ki", R_all, C_all)
+    S_true = S_true.astype(np.float32)
+    S_true_inv = np.linalg.inv(S_true.astype(np.float64))
+
+    def rel(i, j):
+        return (S_true[j].astype(np.float64) @ S_true_inv[i]).astype(np.float32)
+
+    S_est = [S_true[0]]
+    for i in range(1, Kn):
+        noise = _small_sim3(np.concatenate([rng.normal(0, drift, 6), [rng.normal(0, drift / 2)]]))
+        S_est.append((noise @ rel(i - 1, i) @ S_est[i - 1]).astype(np.float32))
+    S_est = np.stack(S_est)
+    e_i = list(range(Kn - 1)) + [Kn - 1] + list(range(0, Kn - covis_every, covis_every))
+    e_j = list(range(1, Kn)) + [0] + [i + covis_every for i in range(0, Kn - covis_every,
+                                                                     covis_every)]
+    E = len(e_i)
+    prob = dict(S_init=S_est, vertex_fixed=np.arange(Kn) == 0, vertex_valid=np.ones(Kn, bool),
+                edge_i=np.asarray(e_i, np.int32), edge_j=np.asarray(e_j, np.int32),
+                edge_Sji=np.stack([rel(i, j) for i, j in zip(e_i, e_j)]),
+                edge_valid=np.ones(E, bool), edge_weight=np.ones(E, np.float32))
+    return prob, S_true, S_est
+
+
+SIM3_K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32)
+SIGMA2 = np.array([1.2 ** (2 * i) for i in range(8)], np.float32)
+
+
+def loop_matches(n=300, outlier_share=0.3, scale=1.3, seed=0):
+    """Seeded loop-closure matches between a candidate keyframe (2) and the
+    current one (1), as tests/test_sim3_posegraph.py builds them: n points
+    2-9 m in front of camera 2, p1 = s R p2 + t, `outlier_share` of them
+    moved 1-3 m in camera 1, pixels by SIM3_K, octaves 0-3. Returns
+    (p1, p2, uv1, uv2, oct1, oct2, R, t, s)."""
+    rng = np.random.default_rng(seed)
+    R = _rotation(rng.normal(0, 0.2, 3))
+    t = rng.normal(0, 0.5, 3)
+    p2 = rng.uniform([-2, -2, 4], [2, 2, 9], (n, 3))
+    p1 = scale * p2 @ R.T + t
+    bad = rng.choice(n, int(outlier_share * n), replace=False)
+    p1[bad] += rng.uniform(1, 3, (bad.size, 3))
+
+    def project(p):
+        return (p[:, :2] / p[:, 2:3]) * SIM3_K[0, 0] + SIM3_K[:2, 2]
+
+    o1, o2 = rng.integers(0, 4, n), rng.integers(0, 4, n)
+    return (p1.astype(np.float32), p2.astype(np.float32), project(p1).astype(np.float32),
+            project(p2).astype(np.float32), o1, o2, R, t, scale)
 
 
 def slam_config_kwargs(sensor):
@@ -697,7 +872,17 @@ def main() -> int:
         BAProblem, local_bundle_adjustment)
     from orb_slam2_detailed_comments_tpu_torch.state.map_store import MapStore
     from orb_slam2_detailed_comments_tpu_torch.system import System
-    from orb_slam2_detailed_comments_tpu_torch.utils.config import OrbConfig, SlamConfig
+    from orb_slam2_detailed_comments_tpu_torch.utils.config import (
+        OrbConfig, SlamConfig, load_settings_yaml)
+    from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import solve_global_ba
+    from orb_slam2_detailed_comments_tpu_torch.geometry.sim3 import log_sim3, sim3_inverse
+    from orb_slam2_detailed_comments_tpu_torch.optim import global_ba as GBA
+    from orb_slam2_detailed_comments_tpu_torch.optim import global_ba_grouped as GBG
+    from orb_slam2_detailed_comments_tpu_torch.optim.global_ba import global_bundle_adjustment
+    from orb_slam2_detailed_comments_tpu_torch.optim.pose_graph import (
+        PoseGraphProblem, optimize_pose_graph, pose_graph_backend)
+    from orb_slam2_detailed_comments_tpu_torch.optim.sim3_opt import optimize_sim3
+    from orb_slam2_detailed_comments_tpu_torch.solvers.sim3_solver import solve_sim3_ransac
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1041,12 +1226,14 @@ def main() -> int:
         return out
 
     LM.local_bundle_adjustment = counted_solve
+    systems = {}
     for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=10):
         poses, frames = render_sequence(sensor)
         kw = slam_config_kwargs(sensor)
         cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
                          fps=kw["fps"], th_depth=kw["th_depth"])
         slam = System(cfg, sensors[sensor], enable_loop_closing=False, device=dev)
+        systems[sensor] = slam
         n_solves = len(solves)
         zero_counts()
         res = drive_system(slam, sensor, poses, frames, sync=torch.cuda.synchronize)
@@ -1114,6 +1301,204 @@ def main() -> int:
             raise AssertionError(f"local BA bucket {bucket}: {n_sync} syncs, identical {same}")
         if not bool(torch.isfinite(first[0]).all() & torch.isfinite(first[1]).all()):
             raise AssertionError(f"local BA bucket {bucket}: non-finite result")
+    def check_no_launch(name):
+        n = read_counts()
+        if any(n.values()):
+            raise AssertionError(f"{name} launched kernels {n}")
+
+    def cam_params(cam):
+        return (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+
+    # ---- [14] the grouped global BA ----
+    # (a) the stereo System's whole map after [10]
+    slam = systems["stereo"]
+    zero_counts()
+    prob, kfs, pts = LM.build_global_ba_problem(slam.map, dev)
+    E = int(prob.edge_cam.shape[0])
+    path = "grouped" if E >= LM.FLAT_GBA_MAX_EDGES else "flat"
+    inv_s2_map = torch.from_numpy(slam.local_mapper.inv_sigma2).to(dev)
+    t0 = time.perf_counter()
+    cams_r, pts_r = LM.solve_global_ba(prob, slam.config.camera, slam.local_mapper.inv_sigma2)
+    ms_route = 1e3 * (time.perf_counter() - t0)
+    grouped = GBG.global_bundle_adjustment_grouped(prob, slam.config.camera, inv_s2_map)
+    flat = global_bundle_adjustment(prob, slam.config.camera, inv_s2_map)
+    check_no_launch("[14] global BA")
+    d_cam = _max_err(grouped[0], flat[0])
+    d_pt = _max_err(grouped[1], flat[1])
+    routed = (cams_r, pts_r)
+    same_route = all(np.array_equal(a, b.cpu().numpy())
+                     for a, b in zip(routed, grouped if path == "grouped" else flat))
+    print(f"[14] stereo System map: {len(kfs)} keyframes, {len(pts)} points, {E} edges "
+          f"({'>=' if path == 'grouped' else 'below'} {LM.FLAT_GBA_MAX_EDGES}"
+          f"{'' if path == 'grouped' else ': (b) is the evidence for the grouped path'}); "
+          f"solve_global_ba took the {path} path ({ms_route:.3f} ms, its result equal to that "
+          f"solver's: {same_route}); grouped against flat: cameras {d_cam:.3e}, points "
+          f"{d_pt:.3e} (limits {GBA_CAM_TOL}, {GBA_PT_TOL}), inliers agree "
+          f"{float((grouped[2] == flat[2]).float().mean()):.4f}", flush=True)
+    if not same_route or d_cam > GBA_CAM_TOL or d_pt > GBA_PT_TOL:
+        raise AssertionError("[14] grouped and flat global BA disagree on the stereo map")
+
+    # (b) examples/bench_gba.py's problem
+    d = gba_bench_problem(**GBA_BENCH, seed=0)
+    prob = BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in d.items()})
+    gcam = PinholeCamera(**GBA_CAM)
+    inv_s2 = torch.from_numpy(GBA_INV_S2).to(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    gp = GBG.group_global_problem(prob)
+    torch.cuda.synchronize()
+    ms_group = 1e3 * (time.perf_counter() - t0)
+    Kp, P, Ks, Us = gp.shape
+    solve = functools.partial(GBG.solve_grouped, gp, gcam, inv_s2, 10, 50, 1e-5)
+    first, n_sync = count_syncs(solve)
+    again, ms_solve = _frame_ms(solve, n=3)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    torch.cuda.reset_peak_memory_stats()
+    solve()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_kernels, busy = _profile_frame(solve)
+    calls = []
+
+    def spy(gp_, *a):
+        calls.append(gp_)
+        return GBG.solve_grouped(gp_, *a)
+
+    LM.solve_grouped = spy
+    cams_r, pts_r = LM.solve_global_ba(prob, gcam, GBA_INV_S2, n_iters=10)
+    LM.solve_grouped = GBG.solve_grouped
+    check_no_launch("[14] global BA")
+    cost0 = float(GBA._robust_cost(prob.cam_Tcw, prob.points, prob, prob.edge_valid,
+                                   cam_params(gcam), inv_s2, True))
+    cost = float(GBA._robust_cost(first[0], first[1], prob, prob.edge_valid, cam_params(gcam),
+                                  inv_s2, True))
+    ref = JAX_CPU_GBA
+    print(f"[14] bench_gba problem: {GBA_BENCH['n_cams']} cameras, {GBA_BENCH['n_points']} points, "
+          f"{int(d['edge_cam'].size)} edges (JAX {ref['edges']}); layout Kp {Kp}, Kc "
+          f"{gp.c_sel.shape[0]}, point spill {Ks}x{Us}, camera spill "
+          f"{tuple(gp.cs_sel.shape)}, built on the host in {ms_group:.3f} ms", flush=True)
+    print(f"[14] grouped solve (10 LM x 50 CG): {ms_solve:.3f} ms per solve (median of 3), "
+          f"{ms_solve / 10:.3f} ms per GN iteration, {n_kernels} CUDA kernels, device busy "
+          f"{_share(busy)}, {n_sync} host syncs, "
+          f"peak device memory {peak_gb:.3f} GB; two solves bit-identical {same}; "
+          f"solve_global_ba routed to it {len(calls)} time(s), result equal "
+          f"{np.array_equal(cams_r, first[0].cpu().numpy())}; robust cost {cost0:.6g} -> "
+          f"{cost:.6g} (JAX on the CPU {ref['cost_before']:.6g} -> {ref['cost_after']:.6g}, "
+          f"{100 * (cost / ref['cost_after'] - 1):+.3f}%)", flush=True)
+    if n_sync or not same or len(calls) != 1 \
+            or not np.array_equal(cams_r, first[0].cpu().numpy()):
+        raise AssertionError(f"[14] grouped solve: {n_sync} syncs, identical {same}, "
+                             f"routed {len(calls)}")
+    if not (math.isfinite(cost) and abs(cost / ref["cost_after"] - 1) <= GBA_COST_RTOL):
+        raise AssertionError(f"[14] robust cost {cost}, JAX {ref['cost_after']}")
+
+    # ---- [15] System mono at configs/KITTI04-12.yaml (ROADMAP.md C.9) ----
+    cfg = load_settings_yaml(str(REPO / "configs" / "KITTI04-12.yaml"))
+    if any(getattr(cfg.camera, k) != v for k, v in TRACK_SEQS["mono_kitti"]["cam"].items()):
+        raise AssertionError(f"[15] the rendered camera is not the YAML's {cfg.camera}")
+    poses, frames = render_sequence("mono_kitti")
+    slam = System(cfg, Sensor.MONOCULAR, enable_loop_closing=False, device=dev)
+    gba_runs = []
+
+    def recorded_gba(prob_, *a, **k):
+        E_ = int(prob_.edge_cam.shape[0])
+        out = solve_global_ba(prob_, *a, **k)
+        gba_runs.append((E_, "grouped" if E_ >= LM.FLAT_GBA_MAX_EDGES else "flat"))
+        return out
+
+    LM.solve_global_ba = recorded_gba
+    zero_counts()
+    tracked, first_ok, ms_frames = [], None, []
+    for i, (img,) in enumerate(frames):
+        t0 = time.perf_counter()
+        Tcw = slam.track_monocular(img, i / cfg.fps)
+        torch.cuda.synchronize()
+        ms_frames.append(1e3 * (time.perf_counter() - t0))
+        ok = Tcw is not None and slam.tracking_state.name == "OK"
+        tracked.append(ok)
+        if ok and first_ok is None:
+            first_ok = i
+    n = check_path("System mono KITTI04-12", len(frames), stereo=False)
+    for k in ("fast_pyramid", "orb_desc", "stereo_sad"):
+        path_launches[k] += n[k]
+    n_init = len(gba_runs)
+    # the whole map's global BA after the run, as loop closing will call it
+    slam.local_mapper.global_ba()
+    LM.solve_global_ba = solve_global_ba
+    after = 0 if first_ok is None else sum(tracked[first_ok + 1:])
+    c = cfg.camera
+    print(f"[15] System mono, configs/KITTI04-12.yaml ({c.width}x{c.height}, fx {c.fx}, "
+          f"{cfg.orb.n_features} features): initialized on frame {first_ok}, tracked {after} of "
+          f"the {len(frames) - 1 - (first_ok or 0)} frames after; the initializations' global "
+          f"BA (edges, path) {gba_runs[:n_init]}; keyframes {slam.map.n_keyframes()}, map points "
+          f"{slam.map.n_map_points()}; median ms per frame {statistics.median(ms_frames):.3f}; "
+          f"the whole map's global BA {gba_runs[n_init:]}", flush=True)
+    if first_ok is None or after < MONO_KITTI_TRACKED or not n_init \
+            or len(gba_runs) != n_init + 1:
+        raise AssertionError(f"[15] mono KITTI04-12: init {first_ok}, {after} tracked after, "
+                             f"global BA {gba_runs}")
+
+    # ---- [16] Sim3 and the essential graph ----
+    zero_counts()
+    inv_sig2 = 1.0 / SIGMA2
+    for scale, fix in ((1.3, False), (1.0, True)):
+        p1, p2, uv1, uv2, o1, o2, R, t, s_true = loop_matches(300, 0.3, scale, seed=0)
+        ransac = functools.partial(solve_sim3_ransac, p2, p1, uv2, uv1, np.ones(len(p1), bool),
+                                   o2, o1, SIGMA2, SIM3_K, fix, min_inliers=20, seed=0,
+                                   device=dev)
+        res, sync_r = count_syncs(ransac)
+        if res is None:
+            raise AssertionError(f"[16] Sim3 RANSAC found no hypothesis (fix_scale {fix})")
+        S0 = np.eye(4, dtype=np.float32)
+        S0[:3, :3], S0[:3, 3] = res.s * res.R, res.t
+        refine = functools.partial(optimize_sim3, S0, p1, p2, uv1, uv2, res.inliers,
+                                   inv_sig2[o1], inv_sig2[o2], SIM3_K, fix_scale=fix, device=dev)
+        opt, sync_o = count_syncs(refine)
+        _, ms_r = _frame_ms(ransac, n=5)
+        _, ms_o = _frame_ms(refine, n=5)
+        k_o, busy_o = _profile_frame(refine)
+        S12 = opt.S12.double().cpu().numpy()
+        s_est = float(np.cbrt(np.linalg.det(S12[:3, :3])))
+        cos = (np.trace((S12[:3, :3] / s_est).T @ R) - 1) / 2
+        rot_deg = math.degrees(math.acos(min(1.0, max(-1.0, cos))))
+        print(f"[16] Sim3 {'fixed' if fix else 'free'} scale (true {scale}): RANSAC {res.n_inliers} "
+              f"inliers of 300, {ms_r:.3f} ms, {sync_r} host syncs; optimize_sim3 "
+              f"{int(opt.n_inliers)} inliers, {ms_o:.3f} ms, {sync_o} host syncs, {k_o} CUDA "
+              f"kernels, device busy {_share(busy_o)}; rotation off by {rot_deg:.5f} deg, "
+              f"scale {s_est:.6f}", flush=True)
+        if not (rot_deg < 0.1 and abs(s_est / scale - 1) < 0.01 and int(opt.n_inliers) >= 20):
+            raise AssertionError(f"[16] Sim3 not recovered: {rot_deg} deg, scale {s_est}")
+
+    def edge_error(Sk, pr):
+        """Mean norm of the edges' 7-vector errors log(Sji Si Sj^-1)."""
+        Sk = torch.as_tensor(Sk, dtype=torch.float32, device=dev)
+        Sji = torch.from_numpy(pr["edge_Sji"]).to(dev)
+        i, j = (torch.from_numpy(pr[k]).long().to(dev) for k in ("edge_i", "edge_j"))
+        return float(log_sim3(Sji @ Sk[i] @ sim3_inverse(Sk[j])).norm(dim=1).mean())
+
+    for Kn, backend, n_iters in POSE_GRAPH_CASES:
+        pr, S_true, S_est = circle_pose_graph(Kn)
+        pgp = PoseGraphProblem(**pr)
+        taken = pose_graph_backend(pgp, backend)
+        solve = functools.partial(optimize_pose_graph, pgp, n_iters=n_iters, backend=backend,
+                                  device=dev)
+        S_opt, n_sync = count_syncs(solve)
+        _, ms_pg = _frame_ms(solve, n=1)
+        k_one, busy_one = _profile_frame(functools.partial(optimize_pose_graph, pgp, n_iters=1,
+                                                           backend=backend, device=dev))
+        S_opt = S_opt.cpu().numpy()
+        t0_err = np.linalg.norm(S_est[:, :3, 3] - S_true[:, :3, 3], axis=1).mean()
+        t1_err = np.linalg.norm(S_opt[:, :3, 3] - S_true[:, :3, 3], axis=1).mean()
+        e0, e1 = edge_error(S_est, pr), edge_error(S_opt, pr)
+        print(f"[16] pose graph K={Kn}, {pr['edge_i'].size} edges, backend {backend!r} -> "
+              f"{taken}, {n_iters} GN: {ms_pg:.3f} ms per solve, {n_sync} host syncs, "
+              f"{k_one} CUDA kernels in one GN iteration (device busy {_share(busy_one)}); "
+              f"mean edge error {e0:.4g} -> {e1:.4g} "
+              f"({e0 / max(e1, 1e-30):.4g}x), mean translation error {t0_err:.4g} -> "
+              f"{t1_err:.4g} m ({t0_err / max(t1_err, 1e-30):.4g}x)", flush=True)
+        if not (e1 * 100 <= e0 and t1_err * 100 <= t0_err):
+            raise AssertionError(f"[16] pose graph K={Kn} {backend}: not cut 100x")
+    check_no_launch("[16] Sim3 and the essential graph")
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -17,7 +17,8 @@ The matchers and the BA solves run on `device`; the bookkeeping is host
 numpy, as in the JAX package. Each stage is timed by `timer`
 (utils/timing.StageTimer), the local-BA solve per bucket. Only the JAX
 package's default path is ported: the device keyframe store, the three
-local-BA buckets and, for whole-map BA, the flat solver.
+local-BA buckets and, for whole-map BA, the flat solver and, from
+FLAT_GBA_MAX_EDGES edges on, the grouped one.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..geometry.triangulate import triangulate_dlt_np
 from ..interop import desc_to_torch
 from ..ops import matching as M
 from ..optim.global_ba import global_bundle_adjustment
+from ..optim.global_ba_grouped import group_global_problem, solve_grouped
 from ..optim.local_ba import BAProblem, local_bundle_adjustment
 from ..state import native_ops
 from ..state.map_store import MapStore
@@ -47,8 +49,8 @@ BA_BUCKETS = (
     (64, 16384, 49152),
 )
 BA_CAM_CAP, BA_PT_CAP, BA_EDGE_CAP = BA_BUCKETS[-1]
-# whole-map BA: the flat solver builds (points x edges) one-hot sums; the
-# JAX package switches to its grouped solver at this edge count
+# whole-map BA: the flat solver builds (points x edges) one-hot sums; from
+# this edge count on the grouped solver takes the map, as in the JAX package
 FLAT_GBA_MAX_EDGES = 4096
 
 
@@ -113,18 +115,23 @@ def build_global_ba_problem(mp: MapStore, device="cuda"):
     return prob, kfs, pts
 
 
-def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10):
-    """Solve a whole-map BAProblem with the flat PCG solver, returning
-    (cam_Tcw, points) as numpy. Maps of FLAT_GBA_MAX_EDGES edges or more
-    take the JAX package's grouped or sharded solvers, which are not
-    ported yet."""
-    E = int(prob.edge_cam.shape[0])
-    if E >= FLAT_GBA_MAX_EDGES:
+def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
+                    stop_check=None):
+    """Solve a whole-map BAProblem, returning (cam_Tcw, points) as numpy.
+    Below FLAT_GBA_MAX_EDGES edges the flat PCG solver takes it; from there
+    on the grouped one (optim/global_ba_grouped.py), with the JAX package's
+    schedule (50 CG iterations, damping 1e-5). `stop_check`, the JAX
+    package's interruptible chunked solve for the asynchronous GBA runner,
+    is not ported (ROADMAP.md A.11c) and raises."""
+    if stop_check is not None:
         raise NotImplementedError(
-            f"global BA over {E} edges needs the grouped solver "
-            f"(optim/global_ba_grouped.py), not ported yet: ROADMAP.md A.11")
+            "an interruptible global BA (stop_check) is not ported: ROADMAP.md A.11c")
     inv_s2 = torch.as_tensor(np.asarray(inv_sigma2, np.float32)).to(prob.points.device)
-    cam_Tcw, points, _ = global_bundle_adjustment(prob, camera, inv_s2, n_iters=n_iters)
+    if int(prob.edge_cam.shape[0]) >= FLAT_GBA_MAX_EDGES:
+        gp = group_global_problem(prob)
+        cam_Tcw, points, _ = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5)
+    else:
+        cam_Tcw, points, _ = global_bundle_adjustment(prob, camera, inv_s2, n_iters=n_iters)
     return cam_Tcw.cpu().numpy(), points.cpu().numpy()
 
 

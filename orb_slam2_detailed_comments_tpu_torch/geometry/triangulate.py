@@ -9,6 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# eigh takes at most this many 4x4 matrices a call: on the H100 (torch
+# 2.11, CUDA 12.8) cuSOLVER's batched eigensolver rejected 32,768 of them
+# (CUSOLVER_STATUS_INVALID_VALUE, a monocular initialization at 4,000
+# features: 8 hypotheses x 4,096 matches) and ran 16,384
+EIGH_BATCH = 16384
+
 
 def triangulate_dlt(P1, P2, uv1, uv2):
     """DLT triangulation.
@@ -22,8 +28,8 @@ def triangulate_dlt(P1, P2, uv1, uv2):
 
     The rows u*P[2]-P[0], v*P[2]-P[1] of each view form A x = 0; the
     solution is the eigenvector of the 4x4 A^T A with the smallest
-    eigenvalue (torch.linalg.eigh, ascending). Its sign is arbitrary, and
-    the division by w removes it.
+    eigenvalue (torch.linalg.eigh, ascending, EIGH_BATCH matrices a call).
+    Its sign is arbitrary, and the division by w removes it.
     """
     P1 = P1.expand(uv1.shape[:-1] + (3, 4))
     P2 = P2.expand(uv2.shape[:-1] + (3, 4))
@@ -36,9 +42,9 @@ def triangulate_dlt(P1, P2, uv1, uv2):
     A = torch.stack(rows, dim=-2)  # (..., 4, 4)
     # row-normalize for conditioning
     A = A / (torch.linalg.norm(A, dim=-1, keepdim=True) + 1e-12)
-    AtA = A.transpose(-1, -2) @ A
-    _, vecs = torch.linalg.eigh(AtA)
-    x = vecs[..., :, 0]  # smallest eigenvalue's eigenvector
+    AtA = (A.transpose(-1, -2) @ A).reshape(-1, 4, 4)
+    vecs = torch.cat([torch.linalg.eigh(part)[1] for part in AtA.split(EIGH_BATCH)])
+    x = vecs[:, :, 0].reshape(A.shape[:-2] + (4,))  # smallest eigenvalue's eigenvector
     w = x[..., 3]
     w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
     return x[..., :3] / w[..., None]

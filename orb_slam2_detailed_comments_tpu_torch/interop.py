@@ -5,7 +5,9 @@ numpy arrays (np.asarray of its jax arrays) and its config objects, into
 the port's tensors and config objects on a given device, so both packages
 can compute on the same local map. `map_store_from_jax` copies a JAX
 MapStore (host numpy state) into the port's, so both trackers can start
-from one map. Nothing here imports jax: objects are read by field name.
+from one map. `ba_problem_from_jax` and `pose_graph_problem_from_jax`
+hand a JAX solver's problem to the port's solver. Nothing here imports
+jax: objects are read by field name.
 """
 from __future__ import annotations
 
@@ -105,3 +107,17 @@ def kf_database_from_jax(db, voc):
         setattr(out, name, getattr(db, name).copy())
     out.inv = {w: list(lst) for w, lst in db.inv.items()}
     return out
+
+
+def ba_problem_from_jax(prob, device="cuda"):
+    """A JAX BAProblem (its fields as arrays) -> the port's on `device`."""
+    from .optim.local_ba import BAProblem
+    return BAProblem(**{f: torch.from_numpy(np.array(getattr(prob, f))).to(device)
+                        for f in BAProblem._fields})
+
+
+def pose_graph_problem_from_jax(prob):
+    """A JAX PoseGraphProblem -> the port's, as numpy arrays (the port's
+    optimize_pose_graph prepares a problem on the host)."""
+    from .optim.pose_graph import PoseGraphProblem
+    return PoseGraphProblem(**{f: np.array(getattr(prob, f)) for f in PoseGraphProblem._fields})

@@ -8,22 +8,44 @@ src/Optimizer.cc:62-361). The Schur complement S = Hcc - A Hpp^-1 A^T is
 never materialized: its matvec is three edge-parallel passes, so PCG with
 a block-Jacobi (6x6 Hcc) preconditioner runs out of edge arrays.
 
-The JAX package's scatter-adds over edges are products with one-hot
-(cameras x edges) and (points x edges) matrices here: sums in a fixed
-order, no atomics, so a solve is deterministic. The matrices are
-(P, E) floats; the caller (backend/local_mapping.solve_global_ba) keeps E
-below 4096. The iteration counts are fixed and the LM acceptance is a
-torch.where, so a solve makes no host sync.
+Every per-camera and per-point sum over edges goes through a `Reducer`.
+The flat one here (`flat_reducer`) multiplies by one-hot (cameras x
+edges) and (points x edges) matrices where the JAX package scatter-adds:
+sums in a fixed order, no atomics, so a solve is deterministic. Those
+matrices are (P, E) floats, so the caller
+(backend/local_mapping.solve_global_ba) keeps E below 4096 and takes
+optim/global_ba_grouped.py's layout reducer above that, with this same
+LM / PCG solve (`solve_lm`). The iteration counts are fixed and the LM
+acceptance is a torch.where, so a solve makes no host sync.
 
 Shares the BAProblem edge-list format with local_ba.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..geometry.se3 import exp_se3, se3_renormalize
 from .local_ba import BAProblem, _edge_terms, _inv3x3, _stereo_row_mask, edge_chi2
 from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
+
+
+class Reducer(NamedTuple):
+    """Per-camera and per-point sums of per-edge rows: (E, n) -> (C, n)
+    and (E, n) -> (P, n), each in a fixed order."""
+    cam: Callable
+    point: Callable
+
+
+def flat_reducer(prob: BAProblem) -> Reducer:
+    """Sums as products with one-hot (C, E) and (P, E) matrices."""
+    C = prob.cam_Tcw.shape[0]
+    P = prob.points.shape[0]
+    dev = prob.points.device
+    oh_c = (prob.edge_cam.long()[None, :] == torch.arange(C, device=dev)[:, None]).float()
+    oh_p = (prob.edge_point.long()[None, :] == torch.arange(P, device=dev)[:, None]).float()
+    return Reducer(cam=lambda x: oh_c @ x, point=lambda x: oh_p @ x)
 
 
 def _robust_cost(cam_Tcw, points, prob: BAProblem, active, cam_params,
@@ -40,7 +62,7 @@ def _robust_cost(cam_Tcw, points, prob: BAProblem, active, cam_params,
 
 
 def _assemble(cam_Tcw, points, prob: BAProblem, active, cam_params,
-              inv_sigma2_levels, use_kernel: bool, damping, oh_c, oh_p):
+              inv_sigma2_levels, use_kernel: bool, damping, red: Reducer):
     """Per-iteration linearization: returns (Hcc_d, Hpp_inv, Y, g_c, g_p)."""
     C = cam_Tcw.shape[0]
     P = points.shape[0]
@@ -57,10 +79,10 @@ def _assemble(cam_Tcw, points, prob: BAProblem, active, cam_params,
     Jc = J_cam * row_mask[:, :, None]
     Jp = J_pt * row_mask[:, :, None]
 
-    Hcc = (oh_c @ torch.einsum("eri,erj,e->eij", Jc, Jc, w).reshape(-1, 36)).reshape(C, 6, 6)
-    Hpp = (oh_p @ torch.einsum("eri,erj,e->eij", Jp, Jp, w).reshape(-1, 9)).reshape(P, 3, 3)
-    g_c = oh_c @ torch.einsum("eri,er,e->ei", Jc, rw, w)
-    g_p = oh_p @ torch.einsum("eri,er,e->ei", Jp, rw, w)
+    Hcc = red.cam(torch.einsum("eri,erj,e->eij", Jc, Jc, w).reshape(-1, 36)).reshape(C, 6, 6)
+    Hpp = red.point(torch.einsum("eri,erj,e->eij", Jp, Jp, w).reshape(-1, 9)).reshape(P, 3, 3)
+    g_c = red.cam(torch.einsum("eri,er,e->ei", Jc, rw, w))
+    g_p = red.point(torch.einsum("eri,er,e->ei", Jp, rw, w))
     Y = torch.einsum("eri,erj,e->eij", Jc, Jp, w)  # (E, 6, 3)
 
     eye3 = torch.eye(3, device=points.device)
@@ -72,13 +94,13 @@ def _assemble(cam_Tcw, points, prob: BAProblem, active, cam_params,
     return Hcc_d, _inv3x3(Hpp_d), Y, g_c, g_p
 
 
-def _schur_matvec(x, Hcc_d, Hpp_inv, Y, edge_cam, edge_point, free_mask, oh_c, oh_p):
+def _schur_matvec(x, Hcc_d, Hpp_inv, Y, edge_cam, edge_point, free_mask, red: Reducer):
     """S x = Hcc x - A Hpp^-1 A^T x, all edge-parallel."""
     x = x * free_mask[:, None]
     u = torch.einsum("cij,cj->ci", Hcc_d, x)
-    v = oh_p @ torch.einsum("eij,ei->ej", Y, x[edge_cam])          # A^T x
+    v = red.point(torch.einsum("eij,ei->ej", Y, x[edge_cam]))      # A^T x
     wv = torch.einsum("pij,pj->pi", Hpp_inv, v)                    # Hpp^-1 A^T x
-    u = u - oh_c @ torch.einsum("eij,ej->ei", Y, wv[edge_point])
+    u = u - red.cam(torch.einsum("eij,ej->ei", Y, wv[edge_point]))
     return u * free_mask[:, None]
 
 
@@ -104,25 +126,25 @@ def _pcg(matvec, b, Minv, n_iters: int):
 
 
 def _gba_iteration(cam_Tcw, points, prob: BAProblem, active, cam_params,
-                   inv_sigma2_levels, use_kernel, damping, cg_iters, oh_c, oh_p):
+                   inv_sigma2_levels, use_kernel, damping, cg_iters, red: Reducer):
     Hcc_d, Hpp_inv, Y, g_c, g_p = _assemble(
         cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
-        use_kernel, damping, oh_c, oh_p)
+        use_kernel, damping, red)
     free = (prob.cam_free & prob.cam_valid).float()
     e_cam, e_pt = prob.edge_cam.long(), prob.edge_point.long()
 
     # rhs: -(g_c - A Hpp^-1 g_p)
     hg = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
-    rhs = -(g_c - oh_c @ torch.einsum("eij,ej->ei", Y, hg[e_pt]))
+    rhs = -(g_c - red.cam(torch.einsum("eij,ej->ei", Y, hg[e_pt])))
     rhs = rhs * free[:, None]
 
     eye6 = torch.eye(6, device=points.device)
     Minv = torch.linalg.inv_ex(Hcc_d + (1.0 - free)[:, None, None] * eye6).inverse
-    dc = _pcg(lambda x: _schur_matvec(x, Hcc_d, Hpp_inv, Y, e_cam, e_pt, free, oh_c, oh_p),
+    dc = _pcg(lambda x: _schur_matvec(x, Hcc_d, Hpp_inv, Y, e_cam, e_pt, free, red),
               rhs, Minv, cg_iters)
 
     # back-substitute points: dp = -Hpp^-1 (g_p + A^T dc)
-    atdc = oh_p @ torch.einsum("eij,ei->ej", Y, dc[e_cam])
+    atdc = red.point(torch.einsum("eij,ei->ej", Y, dc[e_cam]))
     dp = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + atdc)
 
     dc = dc * free[:, None]
@@ -139,14 +161,18 @@ def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
     Robust kernel active on the first half of the iterations only. A step
     is accepted only if it does not increase the robust objective; a
     rejected one raises the damping (g2o's Levenberg rollback)."""
-    C = prob.cam_Tcw.shape[0]
-    P = prob.points.shape[0]
+    return solve_lm(prob, cam, inv_sigma2_levels, n_iters, cg_iters, damping,
+                    flat_reducer(prob))
+
+
+def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: int,
+             damping: float, red: Reducer):
+    """The LM schedule of global_bundle_adjustment with its sums taken by
+    `red`. Returns (cam_Tcw, points, edge_inlier over prob's edges)."""
     dev = prob.points.device
     cam_params = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
     is_stereo = prob.edge_obs[:, 2] >= 0.0
     chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
-    oh_c = (prob.edge_cam.long()[None, :] == torch.arange(C, device=dev)[:, None]).float()
-    oh_p = (prob.edge_point.long()[None, :] == torch.arange(P, device=dev)[:, None]).float()
 
     def lm_phase(n, cam_Tcw, points, active, use_kernel):
         lam = torch.full((), damping, dtype=torch.float32, device=dev)   # no host copy
@@ -155,7 +181,7 @@ def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
         for _ in range(n):
             cand_c, cand_p = _gba_iteration(
                 cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
-                use_kernel, lam, cg_iters, oh_c, oh_p)
+                use_kernel, lam, cg_iters, red)
             c_new = _robust_cost(cand_c, cand_p, prob, active, cam_params,
                                  inv_sigma2_levels, use_kernel)
             accept = c_new <= c_cur

@@ -23,8 +23,8 @@ REVISIT_FRAME's view.
   * culled keyframes stay active in the keyframe database, in both
     packages (ROADMAP.md C.7, reproduced for parity);
   * System(enable_loop_closing=True) and async mapping raise
-    NotImplementedError; so does the global BA of a map past the flat
-    solver's edge limit.
+    NotImplementedError; so does an interruptible global BA (a stop_check,
+    the asynchronous GBA runner's, ROADMAP.md A.11c).
 """
 import numpy as np
 import pytest
@@ -235,4 +235,4 @@ def test_system_without_loop_closing_only():
                         np.zeros((4096, 3), np.float32), np.zeros(4096, np.int32),
                         np.ones(4096, bool))
     with pytest.raises(NotImplementedError, match="A.11"):
-        TLM.solve_global_ba(prob, cfg.camera, np.ones(8, np.float32))
+        TLM.solve_global_ba(prob, cfg.camera, np.ones(8, np.float32), stop_check=lambda: False)

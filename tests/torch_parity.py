@@ -180,6 +180,37 @@ def jax_system_anchor(sensor, perturb=None):
                                 "ate_m")}
 
 
+def jax_gba_anchor():
+    """The JAX package's grouped global BA (global_bundle_adjustment_grouped,
+    its exact-float32 "gather" formulation: the "gemm" one-hot would take
+    3.4 GB here) on chip_smoke.py's [14] problem, examples/bench_gba.py's
+    default size (chip_smoke.gba_bench_problem), with solve_global_ba's
+    schedule (10 LM iterations, 50 CG): the robust cost over all edges
+    before and after. The source of chip_smoke.py's JAX_CPU_GBA. About
+    5-10 min and 3 GB on the CPU."""
+    import jax.numpy as jnp
+    from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu.optim import global_ba as JG
+    from orb_slam2_detailed_comments_tpu.optim.global_ba_grouped import (
+        global_bundle_adjustment_grouped)
+    from orb_slam2_detailed_comments_tpu.optim.local_ba import BAProblem
+    import chip_smoke
+
+    d = chip_smoke.gba_bench_problem(**chip_smoke.GBA_BENCH)
+    prob = BAProblem(**{k: jnp.asarray(v) for k, v in d.items()})
+    cam = PinholeCamera(**chip_smoke.GBA_CAM)
+    inv_s2 = jnp.asarray(chip_smoke.GBA_INV_S2)
+    cam_params = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
+
+    def cost(cams, pts):
+        return float(JG._robust_cost(cams, pts, prob, prob.edge_valid, cam_params, inv_s2, True))
+
+    c0 = cost(prob.cam_Tcw, prob.points)
+    cams, pts, _ = global_bundle_adjustment_grouped(prob, cam, inv_s2, n_iters=10, cg_iters=50,
+                                                    damping=1e-5, backend="gather")
+    return dict(edges=int(d["edge_cam"].size), cost_before=c0, cost_after=cost(cams, pts))
+
+
 def _xla_levels():
     """Make the port's predict_scale_level take its log from XLA on the CPU
     (the JAX package's), to show which differences its ties make
@@ -269,12 +300,16 @@ if __name__ == "__main__":
     # or with perturbations (System only) the System phase under each;
     # JAX_PLATFORMS=cpu python tests/torch_parity.py replay SENSOR [FIRST LAST]
     #     [xla-levels]: replay_local_mapper
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py gba: jax_gba_anchor
     import sys
     from pathlib import Path
     import jax
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     jax.config.update("jax_platforms", "cpu")
     args = sys.argv[1:]
+    if args[:1] == ["gba"]:
+        print(jax_gba_anchor(), f"jax {jax.__version__}", flush=True)
+        sys.exit(0)
     if args[:1] == ["replay"]:
         replay_local_mapper(args[1], *(int(a) for a in args[2:] if a.isdigit()),
                             xla_levels="xla-levels" in args)
