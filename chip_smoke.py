@@ -58,13 +58,28 @@ device time and its bound. Then it drives the port at full size:
           (dense), K=1408 cg), each cutting the mean edge error and the
           mean translation error at least 100x; ms, host syncs and CUDA
           kernels of each.
+  [17]    System(cfg, Sensor.RGBD) with loop closing on, around
+          tests/test_loop_sequence.py's lap at 640x480 (LOOP_LAP, 120
+          frames): frames tracked, the loops closed and their keyframes,
+          live keyframes and map points and the exported trajectory's ATE
+          against the JAX System's anchors (JAX_CPU_LOOP); ms per keyframe
+          and other frame before and after the loop, the loop-closing
+          frame's ms by the loop closer's stages, its host syncs, the
+          essential graph's backend and size and the global BA's edges,
+          path and host syncs (asserted 0).
+  [18]    LoopCloser fed a drifted 270-keyframe loop at KITTI00-02
+          geometry (drifted_loop_map, 2000 keypoints a keyframe) through
+          on_new_keyframe alone: the loop it closes, S_cl, the banded
+          essential graph, the keyframe errors against the truth and the
+          global BA's robust cost against the JAX LoopCloser's on the same
+          map (JAX_CPU_LOOP_MAP); the same times as [17].
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
 fast_pyramid and one orb_desc launch and each stereo frame one stereo_sad
 launch (the other sensors none), and no path launched patch_gather,
 fast_score_nms_raw or fast_score_nms: those three are on no path and are
-driven once per [3] shape instead. [14] and [16] run no image and launch
+driven once per [3] shape instead. [14], [16] and [18] run no image and launch
 no kernel (asserted). The line
 before the last is the per-kernel JSON (launches, errors, times, bounds);
 the last is {"ok": true, "device": {...}}. There is no CPU path: without a
@@ -843,6 +858,328 @@ def drive_system(slam, sensor, poses, frames, sync=lambda: None):
                 reloc_ms=reloc_ms)
 
 
+# ---- [17] a loop lap through System with loop closing on ------------------------
+# tests/test_loop_sequence.py's lap (CylinderWorld of radius 8, the camera on
+# a 4 m circle looking outward, the last OVERLAP frames revisiting the first
+# views) at TUM's width: 640x480, 1000 features, the lap test's 83 deg field
+# of view (fx 360) and 0.5 m baseline, with the tracker phases' +-SEQ_NOISE
+# grey levels of seeded sensor noise (the JAX and torch pyramids part by
+# float32 ulps on flat regions, which flips FAST ties and BRIEF comparisons)
+LOOP_LAP = dict(cam=dict(fx=360.0, fy=360.0, cx=320.0, cy=240.0, bf=180.0, width=640,
+                         height=480),
+                n_features=1000, max_keypoints=1024, fps=10.0, max_keyframes=150,
+                max_map_points=40000, radius=8.0, frames=120, path_radius=4.0, overlap=32)
+
+
+# The JAX package's System(cfg, Sensor.RGBD, enable_loop_closing=True) on
+# the same frames (drive_loop_lap), run on the CPU in the modes of
+# JAX_CPU_TRACKER, jax 0.9.0, by `JAX_PLATFORMS=cpu python
+# tests/torch_parity.py loop` (jax_loop_anchor; about 20 min): loops as
+# (frame, keyframe). Limits: frames tracked and the number of loops exact,
+# each loop's keyframe within LOOP_KF_TOL; live keyframes within SYS_KF_TOL;
+# live map points within SYS_MP_RTOL; the exported trajectory's ATE within
+# ATE_RTOL of the anchor or LOOP_ATE_ATOL_M, whichever is larger.
+# LOOP_ATE_ATOL_M is the JAX package's own spread: with +-1e-3 grey levels
+# of noise on its images (seeds 1-2, loop_lap_frames; `tests/torch_parity.py
+# loop noise1 noise2`) its lap lands at 21.666 and 26.767 mm against the
+# anchor's 31.529, so up to 9.863 mm from it; it closes the same loop at
+# frame 83 each time, with 82 and 78 live keyframes and 6,442 and 6,462
+# map points.
+JAX_CPU_LOOP = dict(tracked=120, loops=[(83, 83)], keyframes=80, allocated=120,
+                    map_points=6422, ate_m=0.03152907496912604)
+LOOP_KF_TOL = 2
+LOOP_ATE_ATOL_M = 0.0099
+
+
+def loop_lap_config_kwargs():
+    """Keyword arguments of SlamConfig, OrbConfig and PinholeCamera (the
+    same fields in both packages) for the lap."""
+    s = LOOP_LAP
+    return dict(camera=dict(s["cam"]), orb=dict(n_features=s["n_features"],
+                                                max_keypoints=s["max_keypoints"]),
+                fps=s["fps"], max_keyframes=s["max_keyframes"],
+                max_map_points=s["max_map_points"])
+
+
+def _synthetic_world():
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tests" / "synthetic_world.py"
+    spec = importlib.util.spec_from_file_location("synthetic_world", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@functools.lru_cache(maxsize=None)
+def render_loop_lap():
+    """(poses (N, 4, 4) world->camera, frames: (image, depth) per frame) of
+    the LOOP_LAP sequence."""
+    sw = _synthetic_world()
+    s, c = LOOP_LAP, LOOP_LAP["cam"]
+    world = sw.CylinderWorld(fx=c["fx"], fy=c["fy"], cx=c["cx"], cy=c["cy"], width=c["width"],
+                             height=c["height"], radius=s["radius"])
+    poses = sw.loop_trajectory(s["frames"], path_radius=s["path_radius"], overlap=s["overlap"])
+    rng = np.random.default_rng(0)
+    frames = []
+    for T in poses:
+        img = world.render(T)
+        img = np.clip(img + rng.uniform(-SEQ_NOISE, SEQ_NOISE, img.shape), 0, 255)
+        frames.append((img.astype(np.float32), world.render_depth(T).astype(np.float32)))
+    return poses, frames
+
+
+def loop_lap_frames(spec=None):
+    """The lap's frames, or with spec "noise<seed>" every image plus seeded
+    uniform noise of +-PERTURB_GREY grey levels (as perturbed_run)."""
+    poses, frames = render_loop_lap()
+    if spec is None:
+        return poses, frames
+    if not spec.startswith("noise"):
+        raise ValueError(f"unknown perturbation {spec!r}")
+    rng = np.random.default_rng(int(spec[len("noise"):]))
+    return poses, [((img + rng.uniform(-PERTURB_GREY, PERTURB_GREY, img.shape)).astype(np.float32),
+                    depth) for img, depth in frames]
+
+
+def exported_ate(slam, poses):
+    """The ATE of the exported trajectory (every frame recomputed from its
+    corrected reference keyframe, io/trajectory.py::recover_frame_trajectory),
+    as tests/test_loop_sequence.py scores a lap, and the number of frames in it."""
+    from orb_slam2_detailed_comments_tpu_torch.evaluation.ate import ate_rmse
+    from orb_slam2_detailed_comments_tpu_torch.io.trajectory import recover_frame_trajectory
+    rec = recover_frame_trajectory(slam.tracker.trajectory, slam.map)
+    est = np.asarray([np.linalg.inv(T)[:3, 3] for _, _, T in rec], np.float64)
+    gt = np.asarray([np.linalg.inv(poses[f])[:3, 3] for f, _, _ in rec], np.float64)
+    return ate_rmse(est, gt, with_scale=False), len(rec)
+
+
+def drive_loop_lap(slam, poses, frames, sync=lambda: None):
+    """Feed the lap to a System (either package's) with loop closing on.
+    Returns the frames tracked, the loops closed with the frame and the
+    keyframe of each, the live keyframes and map points at the end, the
+    keyframes allocated, the exported trajectory's ATE, and the host ms of
+    each frame with whether it made a keyframe, and the loop closer's stage
+    ms of each loop-closing frame (the port's LoopCloser has a timer)."""
+    fps = LOOP_LAP["fps"]
+    lc = slam.loop_closer
+    timer = getattr(lc, "timer", None)
+    tracked, loops, frame_ms, stage_ms = 0, [], [], []
+    for i, (img, depth) in enumerate(frames):
+        n_kf, n_loops = slam.map.n_kf, lc.n_loops_closed
+        seen = {k: len(v) for k, v in timer.samples.items()} if timer else {}
+        t0 = time.perf_counter()
+        Tcw = slam.track_rgbd(img, depth, i / fps)
+        sync()
+        frame_ms.append((1e3 * (time.perf_counter() - t0), slam.map.n_kf > n_kf))
+        tracked += Tcw is not None and slam.tracking_state.name == "OK"
+        if lc.n_loops_closed > n_loops:
+            loops.append((i, int(lc.last_loop_kf)))
+            if timer:
+                stage_ms.append({k: 1e3 * sum(v[seen.get(k, 0):])
+                                 for k, v in timer.samples.items() if len(v) > seen.get(k, 0)})
+    ate, n_exported = exported_ate(slam, poses)
+    return dict(tracked=tracked, loops=loops, keyframes=int(slam.map.n_keyframes()),
+                allocated=int(slam.map.n_kf), map_points=int(slam.map.n_map_points()),
+                ate_m=ate, exported=n_exported, frame_ms=frame_ms, stage_ms=stage_ms)
+
+
+# ---- [18] LoopCloser on a drifted loop at KITTI size ---------------------------
+# configs/KITTI00-02.yaml's camera and 2000 keypoints a keyframe; LAP_KFS
+# keyframes on a circle of LOOP_RADIUS m facing along it (KITTI-00 takes
+# keyframes ~1.5 m apart), then REVISIT_KFS keyframes that drive the first
+# segments again one lane over (LANE_M m to the side, YAW_DEG deg off),
+# so the consistency chain reaches 3 on the fourth of them. More than 256
+# keyframes: the essential graph takes the banded backend, as a KITTI-00
+# loop does.
+LOOP_MAP = dict(cam=TRACK_SEQS["stereo"]["cam"], n_features=2000, max_keypoints=2048,
+                lap_kfs=264, revisit_kfs=6, radius=62.0, new_points=300, shared_points=100,
+                depth=(5.0, 40.0), lane_m=0.5, yaw_deg=1.0, yaw_bias=1e-4, rot_drift=1e-4,
+                trans_drift=0.01,
+                pixel_noise=0.5, desc_flips=4, seed=0)
+
+
+# The JAX package's LoopCloser on the same map (drive_loop_map), run on the
+# CPU, jax 0.9.0, by `JAX_PLATFORMS=cpu python tests/torch_parity.py
+# loop_map` (jax_loop_map_anchor). Limits: the loop closed, its keyframe and
+# loop keyframe exact; S_cl within 1e-3 rad and 1e-3 relative in
+# translation; the essential graph's keyframes and edges exact; the lap-end
+# and mean keyframe-centre errors within 10%, each cut at least 2x from the
+# drifted map's; the global BA's edges exact, its robust cost after within
+# GBA_COST_RTOL.
+JAX_CPU_LOOP_MAP = dict(
+    closed=[(267, 3, [[0.9998468, -2.85e-05, -0.0175022, -0.4981329],
+                      [2.28e-05, 0.9999999, -0.0003244, 0.0087016],
+                      [0.0175022, 0.000324, 0.9998468, -0.0075218], [0.0, 0.0, 0.0, 1.0]])],
+    graphs=[(270, 274)], err_before=(1.7957355150520642, 1.0568584840761488),
+    err_after=(0.01874759132233069, 0.18975269653714144),
+    gba=[dict(edges=107842, cost_before=220615.359375, cost_after=13969.3046875)])
+
+
+def loop_map_config_kwargs():
+    s = LOOP_MAP
+    return dict(camera=dict(s["cam"]), orb=dict(n_features=s["n_features"],
+                                                max_keypoints=s["max_keypoints"]),
+                fps=10.0, th_depth=35.0, max_keyframes=s["lap_kfs"] + s["revisit_kfs"] + 8,
+                max_map_points=(s["lap_kfs"] + s["revisit_kfs"]) * s["new_points"] + 8)
+
+
+def _pose(R, C):
+    """World -> camera (4, 4) float32 from camera-to-world rotation R and centre C."""
+    T = np.eye(4)
+    T[:3, :3] = R.T
+    T[:3, 3] = -R.T @ C
+    return T.astype(np.float32)
+
+
+def drifted_loop_map(MapStore, FrameData, cfg):
+    """A MapStore (either package's, built by its MapStore and FrameData
+    classes and SlamConfig `cfg`) of the LOOP_MAP drive, in the manner of
+    tests/test_loop_closing.py::build_drifted_loop: each keyframe's pose
+    carries the odometry drift accumulated so far (a yaw bias of yaw_bias
+    rad a keyframe, as odometry drifts, on a random walk of rot_drift rad
+    and trans_drift m a keyframe), and each keyframe creates
+    its own map points from its drifted pose (new_points seen in the image
+    at `depth` m; stereo, ur = u - bf / z) and re-observes shared_points of
+    the previous keyframe's through the drifted map, as odometry would. The
+    revisiting keyframes see the first segments' true points from their
+    true poses, with descriptors a few bits off (desc_flips), and create
+    duplicates of them: nothing links the two ends until a loop is closed.
+    Every keyframe has n_features keypoints, the rest with random
+    descriptors and no map point. Returns (map, true poses, drifted poses)
+    as (K, 4, 4) world -> camera arrays."""
+    s = LOOP_MAP
+    c = s["cam"]
+    fx, fy, cx, cy, bf = c["fx"], c["fy"], c["cx"], c["cy"], c["bf"]
+    W, H = c["width"], c["height"]
+    rng = np.random.default_rng(s["seed"])
+    n_lap, n_rev = s["lap_kfs"], s["revisit_kfs"]
+
+    def true_pose(k):
+        lap = k >= n_lap
+        a = 2 * np.pi * (k - n_lap if lap else k) / n_lap
+        z = np.array([np.cos(a), 0.0, np.sin(a)])          # along the circle
+        x = np.array([np.sin(a), 0.0, -np.cos(a)])
+        C = s["radius"] * np.array([np.sin(a), 0.0, 1.0 - np.cos(a)])
+        R = np.stack([x, [0.0, 1.0, 0.0], z], 1)
+        if lap:
+            C = C + s["lane_m"] * x
+            R = R @ _rotation(np.array([0.0, np.radians(s["yaw_deg"]), 0.0]))
+        return _pose(R, C)
+
+    gt = np.stack([true_pose(k) for k in range(n_lap + n_rev)])
+    est = [gt[0]]
+    for k in range(1, len(gt)):
+        rel = gt[k].astype(np.float64) @ np.linalg.inv(gt[k - 1].astype(np.float64))
+        noise = np.eye(4)
+        noise[:3, :3] = _rotation(rng.normal(0, s["rot_drift"], 3) + [0.0, s["yaw_bias"], 0.0])
+        noise[:3, 3] = rng.normal(0, s["trans_drift"], 3)
+        est.append((noise @ rel @ est[-1]).astype(np.float32))
+    est = np.stack(est)
+
+    def project(pc):
+        return np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+
+    def in_image(uv, pc):
+        return ((pc[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+                & (uv[:, 1] < H))
+
+    def flip(desc):
+        out = desc.copy()
+        for row in out:
+            for b in rng.choice(256, s["desc_flips"], replace=False):
+                row[b // 32] ^= np.uint32(1 << (b % 32))
+        return out
+
+    cap = cfg.orb.max_keypoints
+    ms = MapStore(cfg)
+    seg_true, seg_desc, prev_ids = [], [], None
+    for k in range(len(gt)):
+        Twc_gt = np.linalg.inv(gt[k].astype(np.float64))
+        Twc_est = np.linalg.inv(est[k].astype(np.float64))
+        if k < n_lap:     # new points in view: a pixel and a depth
+            uv = rng.uniform([0, 0], [W, H], (s["new_points"], 2))
+            z = rng.uniform(*s["depth"], s["new_points"])
+            pc = np.stack([(uv[:, 0] - cx) / fx * z, (uv[:, 1] - cy) / fy * z, z], -1)
+            desc = rng.integers(0, 2 ** 32, (s["new_points"], 8), dtype=np.uint32)
+            seg_true.append(pc @ Twc_gt[:3, :3].T + Twc_gt[:3, 3])
+            seg_desc.append(desc)
+            kp_desc = desc
+        else:             # the revisit: segment k - n_lap's true points
+            pw = seg_true[k - n_lap]
+            pc = pw @ gt[k, :3, :3].T.astype(np.float64) + gt[k, :3, 3]
+            vis = in_image(project(pc), pc)
+            pc, kp_desc = pc[vis], flip(seg_desc[k - n_lap][vis])
+        n_new = len(pc)
+        xy = np.zeros((cap, 2), np.float32)
+        desc_all = rng.integers(0, 2 ** 32, (cap, 8), dtype=np.uint32)
+        ur = np.full(cap, -1.0, np.float32)
+        depth = np.full(cap, -1.0, np.float32)
+        valid = np.zeros(cap, bool)
+        valid[:s["n_features"]] = True
+        xy[:s["n_features"]] = rng.uniform([0, 0], [W, H], (s["n_features"], 2))
+        xy[:n_new] = project(pc) + rng.normal(0, s["pixel_noise"], (n_new, 2))
+        ur[:n_new] = xy[:n_new, 0] - bf / pc[:, 2]
+        depth[:n_new] = pc[:, 2]
+        desc_all[:n_new] = kp_desc
+        # the previous keyframe's points seen again, through the drifted map
+        shared, shared_slots = np.empty(0, np.int64), np.empty(0, np.int64)
+        if prev_ids is not None:
+            pcs = ms.mp_pos[prev_ids].astype(np.float64) @ est[k, :3, :3].T + est[k, :3, 3]
+            ok = np.nonzero(in_image(project(pcs), pcs))[0][:s["shared_points"]]
+            shared = prev_ids[ok]
+            shared_slots = n_new + np.arange(ok.size)
+            xy[shared_slots] = project(pcs[ok]) + rng.normal(0, s["pixel_noise"], (ok.size, 2))
+            ur[shared_slots] = xy[shared_slots, 0] - bf / pcs[ok, 2]
+            depth[shared_slots] = pcs[ok, 2]
+            desc_all[shared_slots] = flip(ms.mp_desc[shared])
+        frame = FrameData(
+            frame_id=k, timestamp=0.1 * k, xy=xy, response=np.ones(cap, np.float32),
+            octave=np.zeros(cap, np.int32), angle=np.zeros(cap, np.float32),
+            desc=np.where(valid[:, None], desc_all, 0).astype(np.uint32), valid=valid,
+            ur=np.where(valid, ur, -1.0).astype(np.float32),
+            depth=np.where(valid, depth, -1.0).astype(np.float32), Tcw=est[k].copy())
+        kf = ms.add_keyframe(frame)
+        ids = ms.add_map_points_batch((pc @ Twc_est[:3, :3].T + Twc_est[:3, 3]).astype(np.float32),
+                                      kf, np.arange(n_new))
+        if shared.size:
+            ms.add_observations_batch(shared, kf, shared_slots)
+        ms.update_point_descriptors(np.concatenate([ids, shared]))
+        ms.update_normal_and_depth(np.concatenate([ids, shared]))
+        ms.update_connections(kf)
+        prev_ids = ids
+    return ms, gt, est
+
+
+def loop_map_errors(ms, gt, n_lap):
+    """Camera-centre errors (m) of the live keyframes against the truth:
+    (the lap's end keyframe n_lap - 1, the mean)."""
+    kfs = ms.keyframe_ids()
+    err = np.linalg.norm(np.stack([np.linalg.inv(ms.kf_Tcw[k].astype(np.float64))[:3, 3]
+                                   - np.linalg.inv(gt[k].astype(np.float64))[:3, 3]
+                                   for k in kfs]), axis=1)
+    return float(err[list(kfs).index(n_lap - 1)]), float(err.mean())
+
+
+def drive_loop_map(lc, sync=lambda: None):
+    """Feed every keyframe of the map to a LoopCloser (either package's)
+    through on_new_keyframe alone. Returns the loops closed as (keyframe,
+    loop keyframe, S_cl) and the host ms of each call."""
+    correct, closed, call_ms = lc._correct_loop, [], []
+
+    def recorded(kf, loop_kf, S_cl, loop_points):
+        closed.append((int(kf), int(loop_kf), np.array(S_cl, np.float64)))
+        return correct(kf, loop_kf, S_cl, loop_points)
+
+    lc._correct_loop = recorded
+    for k in lc.map.keyframe_ids():
+        t0 = time.perf_counter()
+        lc.on_new_keyframe(int(k))
+        sync()
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+    lc._correct_loop = correct
+    return closed, call_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -883,8 +1220,18 @@ def main() -> int:
         PoseGraphProblem, optimize_pose_graph, pose_graph_backend)
     from orb_slam2_detailed_comments_tpu_torch.optim.sim3_opt import optimize_sim3
     from orb_slam2_detailed_comments_tpu_torch.solvers.sim3_solver import solve_sim3_ransac
+    from orb_slam2_detailed_comments_tpu_torch.backend import gba_runner as GR
+    from orb_slam2_detailed_comments_tpu_torch.backend.gba_runner import GlobalBARunner
+    from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import LocalMapper
+    from orb_slam2_detailed_comments_tpu_torch.backend.loop_closing import LoopCloser
+    from orb_slam2_detailed_comments_tpu_torch.place.kf_database import KeyFrameDatabase
+    from orb_slam2_detailed_comments_tpu_torch.state.frame import FrameData
+    from orb_slam2_detailed_comments_tpu_torch.system import load_default_vocabulary
 
     t_start = time.perf_counter()
+
+    def clock():
+        print(f"    {time.perf_counter() - t_start:.1f} s into the run", flush=True)
     dev = torch.device("cuda", 0)
     print(_smi(), flush=True)     # the card's name and power limit
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -1063,6 +1410,8 @@ def main() -> int:
     path_launches = {k: launches[k] for k in OFF_PATH}
 
     # ---- [4]/[5] the per-frame tracking program at full size ----
+    clock()
+
     def check_inliers(name, n_in):
         ref = JAX_CPU_INLIERS[name]
         print(f"    {name}: n_inliers {n_in} (JAX on CPU {ref}, limit +-{INLIER_RTOL:.0%})")
@@ -1162,6 +1511,7 @@ def main() -> int:
                  "of the host time of the frame"), flush=True)
 
     # ---- [7]-[9] the tracking front end, Tracker, per sensor ----
+    clock()
     path_launches.update(fast_pyramid=0, orb_desc=0, stereo_sad=0)
     sensors = {"stereo": Sensor.STEREO, "rgbd": Sensor.RGBD, "mono": Sensor.MONOCULAR}
     for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=7):
@@ -1204,17 +1554,24 @@ def main() -> int:
             raise AssertionError(f"{sensor}: the fused path never ran")
 
     # ---- [10]-[12] System: local mapping and relocalization, per sensor ----
+    clock()
+
     def count_syncs(fn, *a, **k):
         """fn's result and the host syncs it made, counted by torch's sync
-        debug mode (a warning per synchronizing call)."""
+        debug mode (a warning per synchronizing call). Inside another count,
+        the syncs are passed on to it."""
+        prev = torch.cuda.get_sync_debug_mode()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 out = fn(*a, **k)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return out, sum("synchroniz" in str(w.message) for w in caught)
+                torch.cuda.set_sync_debug_mode(prev)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        for w in syncs if prev else ():
+            warnings.warn(w.message)
+        return out, len(syncs)
 
     if count_syncs(lambda: torch.ones(1, device=dev).item())[1] < 1:
         raise AssertionError("the sync count does not see an .item()")
@@ -1281,6 +1638,7 @@ def main() -> int:
     LM.local_bundle_adjustment = local_bundle_adjustment
 
     # ---- [13] local BA per bucket on synthetic problems ----
+    clock()
     inv_s2 = torch.tensor([1.0 / 1.2 ** (2 * i) for i in range(8)], dtype=torch.float32,
                           device=dev)
     ba_cam = PinholeCamera(**BA_CAM)
@@ -1310,6 +1668,7 @@ def main() -> int:
         return (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
 
     # ---- [14] the grouped global BA ----
+    clock()
     # (a) the stereo System's whole map after [10]
     slam = systems["stereo"]
     zero_counts()
@@ -1393,6 +1752,7 @@ def main() -> int:
         raise AssertionError(f"[14] robust cost {cost}, JAX {ref['cost_after']}")
 
     # ---- [15] System mono at configs/KITTI04-12.yaml (ROADMAP.md C.9) ----
+    clock()
     cfg = load_settings_yaml(str(REPO / "configs" / "KITTI04-12.yaml"))
     if any(getattr(cfg.camera, k) != v for k, v in TRACK_SEQS["mono_kitti"]["cam"].items()):
         raise AssertionError(f"[15] the rendered camera is not the YAML's {cfg.camera}")
@@ -1439,6 +1799,7 @@ def main() -> int:
                              f"global BA {gba_runs}")
 
     # ---- [16] Sim3 and the essential graph ----
+    clock()
     zero_counts()
     inv_sig2 = 1.0 / SIGMA2
     for scale, fix in ((1.3, False), (1.0, True)):
@@ -1499,6 +1860,186 @@ def main() -> int:
         if not (e1 * 100 <= e0 and t1_err * 100 <= t0_err):
             raise AssertionError(f"[16] pose graph K={Kn} {backend}: not cut 100x")
     check_no_launch("[16] Sim3 and the essential graph")
+
+    # ---- [17]/[18] loop closing ----
+    gba_solves = []   # (path, host syncs) of each global-BA solve behind a loop
+
+    def counted_grouped(*a, **k):
+        out, n_sync = count_syncs(GBG.solve_grouped, *a, **k)
+        gba_solves.append(("grouped", n_sync))
+        return out
+
+    def counted_flat(*a, **k):
+        out, n_sync = count_syncs(global_bundle_adjustment, *a, **k)
+        gba_solves.append(("flat", n_sync))
+        return out
+
+    def count_loop_syncs(lc):
+        """Count the host syncs of each on_new_keyframe call of a loop
+        closer: (keyframe, syncs, whether it closed a loop)."""
+        calls, on_kf = [], lc.on_new_keyframe
+
+        def counted(kf):
+            n_loops = lc.n_loops_closed
+            out, n_sync = count_syncs(on_kf, kf)
+            calls.append((int(kf), n_sync, lc.n_loops_closed > n_loops))
+            return out
+
+        lc.on_new_keyframe = counted
+        return calls
+
+    def loop_stages(stage_ms):
+        return ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+
+    LM.solve_grouped, LM.global_bundle_adjustment = counted_grouped, counted_flat
+
+    # ---- [17] a loop lap through System with loop closing on ----
+    clock()
+    kw = loop_lap_config_kwargs()
+    cfg = SlamConfig(**{**kw, "camera": PinholeCamera(**kw["camera"]),
+                        "orb": OrbConfig(**kw["orb"])})
+    t0 = time.perf_counter()
+    poses, frames = render_loop_lap()
+    ms_render = 1e3 * (time.perf_counter() - t0)
+    slam = System(cfg, Sensor.RGBD, enable_loop_closing=True, enable_global_ba_on_loop=True,
+                  device=dev)
+    lc_calls = count_loop_syncs(slam.loop_closer)
+    n_gba = len(gba_solves)
+    zero_counts()
+    res = drive_loop_lap(slam, poses, frames, sync=torch.cuda.synchronize)
+    n = check_path("System RGB-D loop lap", len(frames), stereo=False)
+    for k in ("fast_pyramid", "orb_desc", "stereo_sad"):
+        path_launches[k] += n[k]
+    ref = JAX_CPU_LOOP
+    c = kw["camera"]
+    print(f"[17] System RGB-D loop lap ({c['width']}x{c['height']}, fx {c['fx']}, "
+          f"{kw['orb']['n_features']} features, {len(frames)} frames rendered in "
+          f"{ms_render / 1e3:.1f} s): tracked {res['tracked']} (JAX {ref['tracked']}), loops closed "
+          f"(frame, keyframe) {res['loops']} (JAX {ref['loops']}), keyframes live "
+          f"{res['keyframes']} (JAX {ref['keyframes']}) of {res['allocated']} allocated (JAX "
+          f"{ref['allocated']}), map points {res['map_points']} (JAX {ref['map_points']}), "
+          f"exported-trajectory ATE {1e3 * res['ate_m']:.3f} mm over {res['exported']} frames "
+          f"(JAX {1e3 * ref['ate_m']:.3f} mm, limit +-{1e3 * LOOP_ATE_ATOL_M:.1f} mm)", flush=True)
+    first_loop = res["loops"][0][0] if res["loops"] else len(frames)
+    for tag, sel in (("before the loop", slice(0, first_loop)),
+                     ("after the loop", slice(first_loop + 1, None))):
+        part = res["frame_ms"][sel]
+        med = {kf: [ms_ for ms_, is_kf in part if is_kf == kf] for kf in (True, False)}
+        print(f"[17] {tag}: median ms per keyframe frame "
+              + (f"{statistics.median(med[True]):.3f} ({len(med[True])})" if med[True] else "none")
+              + ", per other frame "
+              + (f"{statistics.median(med[False]):.3f} ({len(med[False])})" if med[False]
+                 else "none"), flush=True)
+    for (i, kf), stage_ms in zip(res["loops"], res["stage_ms"]):
+        n_sync = next(s for k, s, closed in lc_calls if k == kf and closed)
+        print(f"[17] loop-closing frame {i} (keyframe {kf}): {res['frame_ms'][i][0]:.3f} ms; loop "
+              f"closer stages ms: {loop_stages(stage_ms)}; host syncs in its loop-closer call "
+              f"{n_sync}", flush=True)
+    lap_gba = gba_solves[n_gba:]
+    graph = slam.loop_closer.last_graph
+    print(f"[17] essential graph (backend, keyframes, edges) {graph}; global BA "
+          f"{slam.gba_runner.last_edges} edges, solves (path, host syncs) {lap_gba}; loop-closer "
+          f"stages, median ms (count): " + ", ".join(
+              f"{k} {v['median_ms']:.3f} ({v['count']})"
+              for k, v in sorted(slam.loop_closer.timer.summary().items())), flush=True)
+    if res["tracked"] != ref["tracked"] or len(res["loops"]) != len(ref["loops"]) \
+            or any(abs(a[1] - b[1]) > LOOP_KF_TOL for a, b in zip(res["loops"], ref["loops"])):
+        raise AssertionError(f"[17] loop lap: {res['tracked']} tracked, loops {res['loops']}; "
+                             f"JAX {ref}")
+    if abs(res["keyframes"] - ref["keyframes"]) > SYS_KF_TOL \
+            or abs(res["map_points"] - ref["map_points"]) > SYS_MP_RTOL * ref["map_points"]:
+        raise AssertionError(f"[17] loop lap: keyframes {res['keyframes']}, map points "
+                             f"{res['map_points']}; JAX {ref}")
+    if abs(res["ate_m"] - ref["ate_m"]) > max(ATE_RTOL * ref["ate_m"], LOOP_ATE_ATOL_M):
+        raise AssertionError(f"[17] loop lap: ATE {res['ate_m']} m, JAX {ref['ate_m']} m")
+    if any(s for _, s in lap_gba) or len(lap_gba) != len(res["loops"]):
+        raise AssertionError(f"[17] global BA solves {lap_gba} for {len(res['loops'])} loops")
+
+    # ---- [18] LoopCloser on a drifted loop at KITTI size ----
+    clock()
+    kw = loop_map_config_kwargs()
+    cfg = SlamConfig(**{**kw, "camera": PinholeCamera(**kw["camera"]),
+                        "orb": OrbConfig(**kw["orb"])})
+    n_lap = LOOP_MAP["lap_kfs"]
+    t0 = time.perf_counter()
+    ms_map, gt, _ = drifted_loop_map(MapStore, FrameData, cfg)
+    ms_build = 1e3 * (time.perf_counter() - t0)
+    err_before = loop_map_errors(ms_map, gt, n_lap)
+    voc = load_default_vocabulary()
+    runner = GlobalBARunner(cfg, ms_map, device=dev)
+    lc = LoopCloser(cfg, ms_map, voc, KeyFrameDatabase(voc, cfg.max_keyframes), fix_scale=True,
+                    local_mapper=LocalMapper(cfg, ms_map, monocular=False, device=dev),
+                    run_global_ba=True, gba_runner=runner, device=dev)
+    lc_calls = count_loop_syncs(lc)
+    solved = []
+
+    def recorded_gba(prob, *a, **k):
+        out = solve_global_ba(prob, *a, **k)
+        solved.append((prob, out))
+        return out
+
+    GR.solve_global_ba = recorded_gba
+    n_gba = len(gba_solves)
+    zero_counts()
+    closed, call_ms = drive_loop_map(lc, sync=torch.cuda.synchronize)
+    check_no_launch("[18] LoopCloser")
+    GR.solve_global_ba = solve_global_ba
+    LM.solve_grouped, LM.global_bundle_adjustment = GBG.solve_grouped, global_bundle_adjustment
+    err_after = loop_map_errors(ms_map, gt, n_lap)
+    ref = JAX_CPU_LOOP_MAP
+    inv_s2 = torch.from_numpy(runner.inv_sigma2).to(dev)
+    costs = []
+    for prob, (cams, pts) in solved:
+        c0 = float(GBA._robust_cost(prob.cam_Tcw, prob.points, prob, prob.edge_valid,
+                                    cam_params(cfg.camera), inv_s2, True))
+        c1 = float(GBA._robust_cost(torch.from_numpy(cams).to(dev), torch.from_numpy(pts).to(dev),
+                                    prob, prob.edge_valid, cam_params(cfg.camera), inv_s2, True))
+        costs.append((int(prob.edge_cam.shape[0]), c0, c1))
+    map_gba = gba_solves[n_gba:]
+    c = kw["camera"]
+    print(f"[18] drifted loop map ({c['width']}x{c['height']}, fx {c['fx']}, "
+          f"{LOOP_MAP['n_features']} keypoints a keyframe): {ms_map.n_kf} keyframes, "
+          f"{int(ms_map.mp_valid.sum())} map points at the end, built in {ms_build:.1f} ms; loops "
+          f"closed (keyframe, loop keyframe) {[(k, lk) for k, lk, _ in closed]} (JAX "
+          f"{[(k, lk) for k, lk, _ in ref['closed']]}); essential graph (backend, keyframes, "
+          f"edges) {lc.last_graph} (JAX {ref['graphs']}); keyframe-centre error (lap end, mean) "
+          f"{err_before[0]:.4f}, {err_before[1]:.4f} m -> {err_after[0]:.4f}, {err_after[1]:.4f} m "
+          f"(JAX {ref['err_after'][0]:.4f}, {ref['err_after'][1]:.4f} m)", flush=True)
+    for kf, n_sync, was_closed in lc_calls:
+        if was_closed:
+            i = [k for k, _, _ in lc_calls].index(kf)
+            stage_ms = {k: 1e3 * v[-1] for k, v in lc.timer.samples.items() if k != "detect"}
+            print(f"[18] loop-closing call (keyframe {kf}): {call_ms[i]:.3f} ms; stages ms: "
+                  f"detect {1e3 * lc.timer.samples['detect'][i]:.3f}, {loop_stages(stage_ms)}; "
+                  f"host syncs {n_sync}", flush=True)
+    print(f"[18] median ms per other on_new_keyframe call "
+          f"{statistics.median(ms_ for (_, _, cl), ms_ in zip(lc_calls, call_ms) if not cl):.3f} "
+          f"({len(call_ms) - len(closed)}); global BA (edges, robust cost before, after) {costs} "
+          f"(JAX {ref['gba']}), solves (path, host syncs) {map_gba}, "
+          f"{1e3 * sum(lc.timer.samples['global_ba']):.3f} ms", flush=True)
+    if len(closed) != 1 or [(k, lk) for k, lk, _ in closed] \
+            != [(k, lk) for k, lk, _ in ref["closed"]]:
+        raise AssertionError(f"[18] loops closed {closed}, JAX {ref['closed']}")
+    S, S_ref = closed[0][2], np.asarray(ref["closed"][0][2])
+    s, s_ref = np.cbrt(np.linalg.det(S[:3, :3])), np.cbrt(np.linalg.det(S_ref[:3, :3]))
+    cos = (np.trace((S[:3, :3] / s).T @ (S_ref[:3, :3] / s_ref)) - 1) / 2
+    d_rot = math.acos(min(1.0, max(-1.0, cos)))
+    d_t = np.linalg.norm(S[:3, 3] - S_ref[:3, 3]) / np.linalg.norm(S_ref[:3, 3])
+    print(f"[18] S_cl against JAX: rotation {d_rot:.3e} rad, translation {d_t:.3e} relative, "
+          f"scale {s:.6f} (JAX {s_ref:.6f})", flush=True)
+    if d_rot > 1e-3 or d_t > 1e-3:
+        raise AssertionError(f"[18] S_cl off JAX by {d_rot} rad, {d_t} relative")
+    if lc.last_graph[0] != "banded" or [lc.last_graph[1:]] != [tuple(g) for g in ref["graphs"]]:
+        raise AssertionError(f"[18] essential graph {lc.last_graph}, JAX {ref['graphs']}")
+    for i, name in enumerate(("lap end", "mean")):
+        if abs(err_after[i] - ref["err_after"][i]) > 0.1 * ref["err_after"][i] \
+                or 2 * err_after[i] > err_before[i]:
+            raise AssertionError(f"[18] {name} error {err_before[i]} -> {err_after[i]} m, JAX "
+                                 f"{ref['err_after'][i]} m")
+    if len(costs) != 1 or abs(costs[0][2] / ref["gba"][0]["cost_after"] - 1) > GBA_COST_RTOL \
+            or costs[0][0] != ref["gba"][0]["edges"] or any(s_ for _, s_ in map_gba) \
+            or [p for p, _ in map_gba] != ["grouped"]:
+        raise AssertionError(f"[18] global BA {costs} {map_gba}, JAX {ref['gba']}")
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -11,14 +11,16 @@ src/LocalMapping.cc). It runs synchronously per new keyframe:
   ├─ SearchInNeighbors fuse   (reference :688-832) — batched projection fuse
   ├─ local BA                 (optim.local_ba, Schur dense path)
   └─ KeyFrameCulling          (reference :966-1082)
-  then the keyframe indexer (the keyframe database) when one is attached.
+  then the loop closer (backend/loop_closing.py), or the keyframe indexer
+  that keeps the keyframe database fed without one, when one is attached.
 
 The matchers and the BA solves run on `device`; the bookkeeping is host
 numpy, as in the JAX package. Each stage is timed by `timer`
 (utils/timing.StageTimer), the local-BA solve per bucket. Only the JAX
 package's default path is ported: the device keyframe store, the three
 local-BA buckets and, for whole-map BA, the flat solver and, from
-FLAT_GBA_MAX_EDGES edges on, the grouped one.
+FLAT_GBA_MAX_EDGES edges on, the grouped one; `_fuse`, one keyframe at a
+time, serves loop fusion.
 """
 from __future__ import annotations
 
@@ -141,7 +143,7 @@ class LocalMapper:
         self.config = config
         self.map = map_store
         self.monocular = monocular
-        self.loop_closer = loop_closer    # a keyframe indexer or None
+        self.loop_closer = loop_closer    # a LoopCloser, a keyframe indexer or None
         self.device = torch.device(device)
         self.recent_points: List[int] = []  # candidates for culling
         self.scale_factors = np.array(
@@ -420,6 +422,36 @@ class LocalMapper:
         mp.update_normal_and_depth(touched)
         mp.update_connections(kf)
 
+    def _point_pad(self, mp_ids: np.ndarray):
+        """The points to fuse, the best observed first, padded to 8192
+        slots: (ids, valid)."""
+        cap = 8192
+        mp_ids = counters.keep_best_observed(mp_ids, self.map.mp_n_obs, cap, "local_mapping.fuse")
+        pad = cap - mp_ids.size
+        return np.pad(mp_ids, (0, pad)), np.pad(self.map.mp_valid[mp_ids], (0, pad))
+
+    def _fuse(self, kf: int, mp_ids: np.ndarray, th: float = 3.0):
+        """Project points into keyframe kf and merge duplicates (reference:
+        ORBmatcher::Fuse, ORBmatcher.cc:1100-1279), one keyframe at a time
+        from the store as it stands: loop fusion (backend/loop_closing.py)
+        calls it per keyframe of the corrected group, and each call sees the
+        points the previous ones merged."""
+        mp = self.map
+        if mp_ids.size == 0:
+            return
+        ids, pvalid = self._point_pad(mp_ids)
+        proj = M.project_and_cull(
+            self._t(mp.mp_pos[ids]), self._t(pvalid), self._t(mp.mp_normal[ids]),
+            self._t(mp.mp_min_dist[ids]), self._t(mp.mp_max_dist[ids]),
+            self._t(mp.kf_Tcw[kf]), self.config.camera, self.config.orb.n_levels,
+            self.log_scale, view_cos_limit=0.5)
+        m = M.search_by_projection(
+            proj, desc_to_torch(mp.mp_desc[ids], self.device), self._t(mp.kf_xy[kf]),
+            self._t(mp.kf_ur[kf]), desc_to_torch(mp.kf_desc[kf], self.device),
+            self._t(mp.kf_kp_valid[kf]), self._t(mp.kf_octave[kf]), self._scale_factors_t,
+            th=th / 4.0, max_dist=M.TH_LOW, ratio=0.0, check_stereo=not self.monocular)
+        self._apply_fuse_matches(kf, ids, m.ok.cpu().numpy(), m.idx.cpu().numpy())
+
     def _fuse_batched(self, kfs, mp_ids: np.ndarray, th: float = 3.0):
         """Fuse one shared point pad into several target keyframes with one
         batched call over the device keyframe store (reference:
@@ -428,11 +460,7 @@ class LocalMapper:
         mp = self.map
         if mp_ids.size == 0 or not kfs:
             return
-        cap = 8192
-        mp_ids = counters.keep_best_observed(mp_ids, mp.mp_n_obs, cap, "local_mapping.fuse")
-        pad = cap - mp_ids.size
-        ids = np.pad(mp_ids, (0, pad))
-        pvalid = np.pad(mp.mp_valid[mp_ids], (0, pad))
+        ids, pvalid = self._point_pad(mp_ids)
         store = self._kf_store()
         rows = [store.row_of(mp, int(k)) for k in kfs]
         Tcws = self._t(mp.kf_Tcw[np.asarray(kfs)].astype(np.float32))

@@ -8,10 +8,13 @@ map checkpoints and trajectory export.
 
 The stages run synchronously per keyframe, as in the JAX package's
 default: the Tracker, then on each new keyframe the LocalMapper (culling,
-triangulation, fusion, local BA, keyframe culling) and the keyframe
-indexer, and the Relocalizer on LOST. Loop closing (with its global BA
-runner) and the asynchronous mapping pipeline are not ported yet
-(ROADMAP.md A.11): asking for either raises NotImplementedError.
+triangulation, fusion, local BA, keyframe culling) and the LoopCloser
+(loop detection, Sim3, loop correction and the global BA after a loop,
+through the inline GlobalBARunner), and the Relocalizer on LOST. With
+enable_loop_closing=False a keyframe indexer takes the loop closer's place
+and keeps the keyframe database fed. The asynchronous mapping pipeline is
+not ported (ROADMAP.md A.11c): async_mapping=True raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from typing import Optional
 
 import numpy as np
 
+from .backend.gba_runner import GlobalBARunner
 from .backend.local_mapping import LocalMapper
+from .backend.loop_closing import LoopCloser
 from .backend.relocalization import Relocalizer
 from .frontend.tracking import Sensor, Tracker, TrackingState
 from .io.trajectory import (save_keyframe_trajectory_tum, save_trajectory_kitti,
@@ -69,12 +74,9 @@ class System:
                  enable_loop_closing: bool = True,
                  enable_global_ba_on_loop: bool = True,
                  async_mapping: bool = False, device="cuda"):
-        # the JAX package's signature; enable_global_ba_on_loop acts only
-        # through loop closing, which is not ported yet
-        if enable_loop_closing or async_mapping:
+        if async_mapping:
             raise NotImplementedError(
-                "loop closing and the asynchronous mapping pipeline are not ported yet "
-                "(ROADMAP.md A.11): build System(..., enable_loop_closing=False)")
+                "the asynchronous mapping pipeline is not ported: ROADMAP.md A.11c")
         self.config = config
         self.sensor = sensor
         self.device = device
@@ -92,12 +94,18 @@ class System:
             vocabulary = None
         self.voc = vocabulary
         self.kfdb: Optional[KeyFrameDatabase] = None
+        self.loop_closer: Optional[LoopCloser] = None
         self.relocalizer = None
+        self._enable_loop = enable_loop_closing
+        self._enable_gba = enable_global_ba_on_loop
         self._pending_voc_train = vocabulary is None
         self._voc_min_kfs = 3
 
         self.local_mapper = LocalMapper(config, self.map,
                                         monocular=(sensor == Sensor.MONOCULAR), device=device)
+        # the global BA after a loop (reference: LoopClosing.cc:962-965),
+        # inline: snapshot, solve and merge in the loop closer's call
+        self.gba_runner = GlobalBARunner(config, self.map, device=device)
         if self.voc is not None:
             self._wire_place_recognition()
         # _wire_place_recognition runs before the tracker exists (a
@@ -116,11 +124,24 @@ class System:
         self.kfdb = KeyFrameDatabase(self.voc, self.config.max_keyframes)
         self.relocalizer = Relocalizer(self.config, self.map, self.voc, self.kfdb,
                                        device=self.device)
-        # keep the relocalization inverted index fed without a loop closer,
-        # and index the keyframes that already exist
-        self.local_mapper.loop_closer = _KeyFrameIndexer(self.map, self.voc, self.kfdb)
+        if self._enable_loop:
+            self.loop_closer = LoopCloser(
+                self.config, self.map, self.voc, self.kfdb,
+                fix_scale=(self.sensor != Sensor.MONOCULAR), local_mapper=self.local_mapper,
+                run_global_ba=self._enable_gba, gba_runner=self.gba_runner, device=self.device)
+            self.local_mapper.loop_closer = self.loop_closer
+        else:
+            # keep the relocalization inverted index fed without a loop closer
+            self.local_mapper.loop_closer = _KeyFrameIndexer(self.map, self.voc, self.kfdb)
+        # index the keyframes that already exist (online training wires up
+        # after the first keyframes); the loop closer keeps their bags sparse
         for k in self.map.keyframe_ids():
-            self.local_mapper.loop_closer.on_new_keyframe(int(k))
+            k = int(k)
+            _, bow = self.voc.transform(self.map.kf_desc[k], self.map.kf_kp_valid[k])
+            self.kfdb.add(k, bow)
+            if self.loop_closer is not None:
+                ids = np.nonzero(bow > 0)[0]
+                self.loop_closer.kf_bow[k] = (ids, bow[ids])
         if hasattr(self, "tracker"):
             self.tracker.relocalizer = self.relocalizer
 
@@ -170,12 +191,16 @@ class System:
 
     def reset(self):
         self.tracker.reset()
-        if self.kfdb is not None:
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
+        elif self.kfdb is not None:
             self.kfdb.clear()
 
     def shutdown(self):
-        """Nothing runs in the background here: the stages are synchronous
-        (reference: System::Shutdown joins the mapping threads)."""
+        """Wait for the global BA runner (reference: System::Shutdown joins
+        the mapping threads and a running global BA, System.cc:444-473);
+        inline, nothing runs in the background."""
+        self.gba_runner.wait()
 
     # ------------------------------------------------------------------
     # introspection (reference: GetTrackingState/GetTrackedMapPoints)
@@ -217,6 +242,7 @@ class System:
         self.map = MapStore.restore(self.config, data)
         self.local_mapper.map = self.map
         self.local_mapper.reset()
+        self.gba_runner.map = self.map
         self.tracker.map = self.map
         if self.tracker._dev_map is not None:
             self.tracker._dev_map.invalidate()

@@ -427,6 +427,8 @@ def test_port_entry_modules_import_no_jax():
             "import orb_slam2_detailed_comments_tpu_torch.system\n"
             "import orb_slam2_detailed_comments_tpu_torch.interop\n"
             "import orb_slam2_detailed_comments_tpu_torch.backend.device_kf\n"
+            "import orb_slam2_detailed_comments_tpu_torch.backend.loop_closing\n"
+            "import orb_slam2_detailed_comments_tpu_torch.backend.gba_runner\n"
             "import orb_slam2_detailed_comments_tpu_torch.optim.global_ba\n"
             "import orb_slam2_detailed_comments_tpu_torch.place.vocabulary_tree\n"
             "import orb_slam2_detailed_comments_tpu_torch.io.trajectory\n"

@@ -22,9 +22,10 @@ REVISIT_FRAME's view.
     tolerances;
   * culled keyframes stay active in the keyframe database, in both
     packages (ROADMAP.md C.7, reproduced for parity);
-  * System(enable_loop_closing=True) and async mapping raise
-    NotImplementedError; so does an interruptible global BA (a stop_check,
-    the asynchronous GBA runner's, ROADMAP.md A.11c).
+  * System at its defaults builds loop closing (LoopCloser and the inline
+    GlobalBARunner) and feeds it every keyframe; async mapping and an
+    interruptible global BA (a stop_check, the asynchronous GBA runner's)
+    raise NotImplementedError (ROADMAP.md A.11c).
 """
 import numpy as np
 import pytest
@@ -71,14 +72,14 @@ def _config(sensor):
         th_depth=100.0 if sensor == "stereo" else 40.0, max_keyframes=100, max_map_points=30000)
 
 
-def _frames(sensor):
+def _frames(sensor, first=None):
     """The MAPPED frames, then BLANK blank ones, then REVISITS copies of
-    frame REVISIT_FRAME."""
+    frame REVISIT_FRAME; with `first`, only the first `first` frames."""
     world = PlanesWorld(fx=250.0, fy=250.0, cx=160.0, cy=120.0, width=320, height=240,
                         texture_seed=3)
     rng = np.random.default_rng(0)
     frames = []
-    for Tcw in smooth_trajectory(MAPPED, step=0.05):
+    for Tcw in smooth_trajectory(MAPPED, step=0.05)[:first]:
         args = [np.clip(world.render(Tcw) + rng.uniform(-NOISE, NOISE, (240, 320)), 0, 255)]
         if sensor == "stereo":
             T_rl = np.eye(4, dtype=np.float32)
@@ -88,6 +89,8 @@ def _frames(sensor):
         elif sensor == "rgbd":
             args.append(world.render_depth(Tcw))
         frames.append([a.astype(np.float32) for a in args])
+    if first is not None:
+        return frames
     blank = [np.zeros_like(a) for a in frames[0]]
     return frames + [blank] * BLANK + [frames[REVISIT_FRAME]] * REVISITS
 
@@ -224,15 +227,49 @@ def test_culled_keyframes_stay_in_the_database_as_in_jax(run):
 
 
 def test_system_without_loop_closing_only():
+    """The name predates loop closing in the port. System(cfg, sensor) at its
+    defaults, and with enable_loop_closing=True, builds a LoopCloser wired to
+    the mapper and to the inline GlobalBARunner, for all three sensors (a
+    fixed scale but for mono); the asynchronous pipeline and an
+    interruptible global BA (a stop_check, the threaded runner's) raise
+    NotImplementedError naming ROADMAP.md A.11c."""
+    from orb_slam2_detailed_comments_tpu_torch.backend.gba_runner import GlobalBARunner
+    from orb_slam2_detailed_comments_tpu_torch.backend.loop_closing import LoopCloser
     cfg = slam_config_from_jax(_config("rgbd"))
-    for kw in (dict(), dict(enable_loop_closing=True), dict(enable_loop_closing=False,
-                                                            async_mapping=True)):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            TS.System(cfg, TT.Sensor.RGBD, device="cpu", **kw)
+    for sensor in SENSORS.values():
+        for kw in (dict(), dict(enable_loop_closing=True)):
+            slam = TS.System(cfg, TT.Sensor[sensor], device="cpu", **kw)
+            lc = slam.loop_closer
+            assert isinstance(lc, LoopCloser) and slam.local_mapper.loop_closer is lc
+            assert isinstance(slam.gba_runner, GlobalBARunner) and lc.gba_runner is slam.gba_runner
+            assert lc.local_mapper is slam.local_mapper and lc.run_global_ba
+            assert lc.fix_scale == (sensor != "MONOCULAR") and lc.kfdb is slam.kfdb
+    with pytest.raises(NotImplementedError, match="A.11c"):
+        TS.System(cfg, TT.Sensor.RGBD, device="cpu", async_mapping=True)
     prob = TLM._problem("cpu", np.eye(4, dtype=np.float32)[None].repeat(2, 0), np.ones(2, bool),
                         np.ones(2, bool), np.zeros((1, 3), np.float32), np.ones(1, bool),
                         *(np.zeros(n, t) for n, t in ((4096, np.int32), (4096, np.int32))),
                         np.zeros((4096, 3), np.float32), np.zeros(4096, np.int32),
                         np.ones(4096, bool))
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.11c"):
         TLM.solve_global_ba(prob, cfg.camera, np.ones(8, np.float32), stop_check=lambda: False)
+
+
+def test_system_defaults_feed_the_loop_closer_every_keyframe():
+    """System(cfg, sensor) at its defaults on the first frames of the RGB-D
+    sequence: every keyframe the mapper takes goes on to the LoopCloser,
+    which indexes it and keeps its bag (too early for a loop: keyframes
+    under 10 never close one)."""
+    cfg = slam_config_from_jax(_config("rgbd"))
+    slam = TS.System(cfg, TT.Sensor.RGBD, device="cpu")
+    mapped, fed = [], []
+    on_map, on_loop = slam.local_mapper.on_new_keyframe, slam.loop_closer.on_new_keyframe
+    slam.local_mapper.on_new_keyframe = lambda kf, run_ba=True: (mapped.append(kf),
+                                                                 on_map(kf, run_ba))
+    slam.loop_closer.on_new_keyframe = lambda kf: (fed.append(kf), on_loop(kf))[1]
+    for i, args in enumerate(_frames("rgbd", first=3)):
+        slam.track_rgbd(*args, 0.1 * i)
+    assert len(fed) >= 2 and fed == mapped == list(range(slam.map.n_kf))
+    assert set(slam.loop_closer.kf_bow) == set(fed) and slam.kfdb.active[fed].all()
+    assert slam.loop_closer.n_loops_closed == 0
+    assert slam.loop_closer.timer.counts["detect"] == len(fed)

@@ -126,13 +126,18 @@ def _jax_fused_exact():
             os.environ["ORB_FUSED_TRACK"] = old
 
 
-def _sequence(sensor):
-    """chip_smoke.py's rendered sequence for `sensor` and the JAX package's
-    SlamConfig and Sensor for it."""
+def _chip_smoke():
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
+    return chip_smoke
+
+
+def _sequence(sensor):
+    """chip_smoke.py's rendered sequence for `sensor` and the JAX package's
+    SlamConfig and Sensor for it."""
+    chip_smoke = _chip_smoke()
     from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor
     from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
     from orb_slam2_detailed_comments_tpu.utils.config import OrbConfig, SlamConfig
@@ -178,6 +183,95 @@ def jax_system_anchor(sensor, perturb=None):
         res = chip_smoke.drive_system(slam, sensor, poses, frames)
     return {k: res[k] for k in ("tracked", "lost", "relocalized", "keyframes", "map_points",
                                 "ate_m")}
+
+
+def jax_loop_anchor(perturb=None):
+    """The JAX package's System(cfg, Sensor.RGBD, enable_loop_closing=True,
+    enable_global_ba_on_loop=True) with the shipped vocabulary on
+    chip_smoke.py's [17] lap (chip_smoke.drive_loop_lap), with the fused
+    path on in the exact modes. The source of chip_smoke.py's JAX_CPU_LOOP;
+    with `perturb` ("noise<seed>", chip_smoke.loop_lap_frames) the same lap
+    under +-1e-3 grey levels of noise, the source of its spread. About 20
+    min and 4 GB on the CPU."""
+    from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor
+    from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu.system import System
+    from orb_slam2_detailed_comments_tpu.utils.config import OrbConfig, SlamConfig
+
+    chip_smoke = _chip_smoke()
+    kw = chip_smoke.loop_lap_config_kwargs()
+    cfg = SlamConfig(**{**kw, "camera": PinholeCamera(**kw["camera"]),
+                        "orb": OrbConfig(**kw["orb"])})
+    poses, frames = chip_smoke.loop_lap_frames(perturb)
+    with _jax_fused_exact():
+        slam = System(cfg, Sensor.RGBD, enable_loop_closing=True, enable_global_ba_on_loop=True)
+        slam.tracker.use_fused = True
+        res = chip_smoke.drive_loop_lap(slam, poses, frames)
+    res["s_per_frame"] = sum(ms for ms, _ in res["frame_ms"]) / 1e3 / len(res["frame_ms"])
+    return {k: res[k] for k in ("tracked", "loops", "keyframes", "allocated", "map_points",
+                                "ate_m", "exported", "s_per_frame")}
+
+
+def jax_loop_map_anchor():
+    """The JAX package's LoopCloser (fix_scale=True, a stereo LocalMapper
+    for the loop fusion, the inline GlobalBARunner) fed chip_smoke.py's [18]
+    drifted loop (chip_smoke.drifted_loop_map) through on_new_keyframe
+    alone, with the shipped vocabulary: the source of chip_smoke.py's
+    JAX_CPU_LOOP_MAP. The loops closed (keyframe, loop keyframe, S_cl), the
+    essential graph's keyframes and edges, the keyframe-centre errors
+    against the truth before and after (the lap's end, the mean), and the
+    global BA's edges and robust cost before and after. About 3 min and 4
+    GB on the CPU."""
+    import contextlib
+    import jax.numpy as jnp
+    from orb_slam2_detailed_comments_tpu.backend import gba_runner as JR
+    from orb_slam2_detailed_comments_tpu.backend import loop_closing as JL
+    from orb_slam2_detailed_comments_tpu.backend.local_mapping import LocalMapper
+    from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu.optim import global_ba as JG
+    from orb_slam2_detailed_comments_tpu.place.kf_database import KeyFrameDatabase
+    from orb_slam2_detailed_comments_tpu.state.frame import FrameData
+    from orb_slam2_detailed_comments_tpu.state.map_store import MapStore
+    from orb_slam2_detailed_comments_tpu.system import load_default_vocabulary
+    from orb_slam2_detailed_comments_tpu.utils.config import OrbConfig, SlamConfig
+
+    chip_smoke = _chip_smoke()
+    kw = chip_smoke.loop_map_config_kwargs()
+    cfg = SlamConfig(**{**kw, "camera": PinholeCamera(**kw["camera"]),
+                        "orb": OrbConfig(**kw["orb"])})
+    ms, gt, est = chip_smoke.drifted_loop_map(MapStore, FrameData, cfg)
+    n_lap = chip_smoke.LOOP_MAP["lap_kfs"]
+    before = chip_smoke.loop_map_errors(ms, gt, n_lap)
+    voc = load_default_vocabulary()
+    runner = JR.GlobalBARunner(cfg, ms, contextlib.nullcontext())
+    lc = JL.LoopCloser(cfg, ms, voc, KeyFrameDatabase(voc, cfg.max_keyframes), fix_scale=True,
+                       local_mapper=LocalMapper(cfg, ms, monocular=False), run_global_ba=True,
+                       gba_runner=runner)
+    graphs, gbas = [], []
+    optimize_pose_graph, solve_global_ba = JL.optimize_pose_graph, JR.solve_global_ba
+
+    def recorded_graph(prob, **k):
+        graphs.append((int(prob.S_init.shape[0]), int(prob.edge_i.shape[0])))
+        return optimize_pose_graph(prob, **k)
+
+    def recorded_gba(prob, camera, inv_s2, **k):
+        out = solve_global_ba(prob, camera, inv_s2, **k)
+        c = (camera.fx, camera.fy, camera.cx, camera.cy, camera.bf)
+        s2 = jnp.asarray(inv_s2)
+        gbas.append(dict(edges=int(prob.edge_cam.shape[0]), cost_before=float(JG._robust_cost(
+            prob.cam_Tcw, prob.points, prob, prob.edge_valid, c, s2, True)),
+            cost_after=float(JG._robust_cost(jnp.asarray(out[0]), jnp.asarray(out[1]), prob,
+                                             prob.edge_valid, c, s2, True))))
+        return out
+
+    JL.optimize_pose_graph, JR.solve_global_ba = recorded_graph, recorded_gba
+    try:
+        closed, _ = chip_smoke.drive_loop_map(lc)
+    finally:
+        JL.optimize_pose_graph, JR.solve_global_ba = optimize_pose_graph, solve_global_ba
+    return dict(closed=[(k, lk, S.round(7).tolist()) for k, lk, S in closed], graphs=graphs,
+                err_before=before, err_after=chip_smoke.loop_map_errors(ms, gt, n_lap),
+                gba=gbas, keyframes=int(ms.n_keyframes()))
 
 
 def jax_gba_anchor():
@@ -301,12 +395,23 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/torch_parity.py replay SENSOR [FIRST LAST]
     #     [xla-levels]: replay_local_mapper
     # JAX_PLATFORMS=cpu python tests/torch_parity.py gba: jax_gba_anchor
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py loop [noise<seed> ...]:
+    #     jax_loop_anchor (the lap, or the lap under each perturbation)
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py loop_map: jax_loop_map_anchor
     import sys
     from pathlib import Path
     import jax
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     jax.config.update("jax_platforms", "cpu")
     args = sys.argv[1:]
+    if args[:1] == ["loop"]:
+        for p in args[1:] or [None]:
+            print("loop", *([p] if p else []), jax_loop_anchor(p), f"jax {jax.__version__}",
+                  flush=True)
+        sys.exit(0)
+    if args[:1] == ["loop_map"]:
+        print("loop_map", jax_loop_map_anchor(), f"jax {jax.__version__}", flush=True)
+        sys.exit(0)
     if args[:1] == ["gba"]:
         print(jax_gba_anchor(), f"jax {jax.__version__}", flush=True)
         sys.exit(0)
