@@ -56,9 +56,10 @@ class LoopCloser:
         self.kfdb = kfdb
         self.fix_scale = fix_scale
         self.local_mapper = local_mapper
+        if run_global_ba and gba_runner is None:
+            raise ValueError("run_global_ba needs a gba_runner (backend/gba_runner.py)")
         self.run_global_ba = run_global_ba
-        # the global BA after a loop (backend/gba_runner.py); None falls
-        # back to the mapper's in-place global BA
+        # the global BA after a loop (backend/gba_runner.py)
         self.gba_runner = gba_runner
         self.device = torch.device(device)
         sf = config.orb.scale_factor
@@ -339,10 +340,7 @@ class LoopCloser:
 
         if self.run_global_ba:
             with self.timer.stage("global_ba"):
-                if self.gba_runner is not None:
-                    self.gba_runner.launch(n_iters=10)
-                elif self.local_mapper is not None:
-                    self.local_mapper.global_ba(n_iters=10)
+                self.gba_runner.launch(n_iters=10)
 
     # ------------------------------------------------------------------
 

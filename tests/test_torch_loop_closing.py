@@ -17,26 +17,34 @@ vocabulary_from_jax. Each step starts both packages from one state:
     PT_TOL m, the same loop edges;
   * _optimize_essential_graph on TestLoopConnectionEdgeClass's world,
     seeds 5 and 9, with the fusion's loop connections: the mean and pair
-    translation errors within GRAPH_TOL m.
+    translation errors within GRAPH_TOL m;
+  * GlobalBARunner.launch on one drifted loop, with a keyframe, a point
+    and a recycled point slot made between the snapshot and the merge:
+    the same snapshot problem, and from one solve's output (the JAX
+    package's) poses within POSE_TOL and points within PT_TOL m.
 
 Then the port alone: the inline GlobalBARunner against LocalMapper.global_ba,
 its staged propagation and the recycled-slot guard (test_gba_runner.py's
-three cases), the threaded modes raising (ROADMAP.md A.11c), and ROADMAP.md
+three cases), a global BA on a loop without a runner and the threaded
+modes raising (ROADMAP.md A.11c), and ROADMAP.md
 C.11: with vocabulary="online" the JAX System stores dense bags that its
 _detect_loop cannot unpack; the port stores them sparse.
 """
+import contextlib
 import copy
 
 import numpy as np
 import pytest
 import torch
 
+from orb_slam2_detailed_comments_tpu.backend import gba_runner as JR
 from orb_slam2_detailed_comments_tpu.backend.local_mapping import LocalMapper as JMapper
 from orb_slam2_detailed_comments_tpu.backend.loop_closing import LoopCloser as JCloser
 from orb_slam2_detailed_comments_tpu.place.kf_database import KeyFrameDatabase as JDB
 from orb_slam2_detailed_comments_tpu.place.vocabulary import BinaryVocabulary as JVoc
 from orb_slam2_detailed_comments_tpu.system import System as JSystem
 from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor as JSensor
+from orb_slam2_detailed_comments_tpu.state.frame import FrameData as JFrameData
 
 from orb_slam2_detailed_comments_tpu_torch.backend import gba_runner as TR
 from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import (
@@ -180,7 +188,7 @@ def _essential_graph(lc_cls, ms, gt, est, n_cross=4, **kw):
     for i in range(1, 1 + n_cross):
         ms.covis[kf - i, i] = ms.covis[i, kf - i] = 150
         loop_connections[kf - i] = {i}
-    lc = lc_cls(ms.config, ms, None, None, fix_scale=True, **kw)
+    lc = lc_cls(ms.config, ms, None, None, fix_scale=True, run_global_ba=False, **kw)
     lc._optimize_essential_graph(kf, loop_kf, corrected, uncorrected, loop_connections)
     t_err = np.linalg.norm(np.stack([np.linalg.inv(ms.kf_Tcw[k])[:3, 3] for k in range(n)])
                            - np.stack([np.linalg.inv(gt[k])[:3, 3] for k in range(n)]), axis=1)
@@ -196,6 +204,90 @@ def test_essential_graph_matches_jax(seed):
     err_t = _essential_graph(TCloser, map_store_from_jax(ms), gt, est, device="cpu")
     err_j = _essential_graph(JCloser, ms, gt, est)
     np.testing.assert_allclose(err_t, err_j, atol=GRAPH_TOL)
+
+
+def _grow_after_snapshot(runner, frame_cls):
+    """Make runner.launch's snapshot go stale as a running mapper would make
+    it: right after the snapshot, a child keyframe of the last keyframe with
+    a point of its own (the merge propagates both through the spanning
+    tree), and a snapshot point erased and its slot recycled (the merge's
+    first-keyframe guard keeps the solved position off it)."""
+    take = runner._snapshot
+
+    def snapshot():
+        snap = take()
+        ms = runner.map
+        parent = int(ms.keyframe_ids()[-1])
+        kp_cap = ms.config.orb.max_keypoints
+        rel = np.eye(4, dtype=np.float32)
+        rel[:3, 3] = [0.05, 0.0, 0.1]
+        child_pose = (rel @ ms.kf_Tcw[parent]).astype(np.float32)
+        frame = frame_cls(frame_id=999, timestamp=99.0, xy=np.zeros((kp_cap, 2), np.float32),
+                          response=np.zeros(kp_cap, np.float32),
+                          octave=np.zeros(kp_cap, np.int32), angle=np.zeros(kp_cap, np.float32),
+                          desc=np.zeros((kp_cap, 8), np.uint32), valid=np.zeros(kp_cap, bool),
+                          ur=np.full(kp_cap, -1.0, np.float32),
+                          depth=np.full(kp_cap, -1.0, np.float32), Tcw=child_pose.copy())
+        child = ms.add_keyframe(frame)
+        ms.parent[child] = parent
+        Twc = np.linalg.inv(child_pose)
+        pw = (Twc[:3, :3] @ np.array([0.3, -0.2, 5.0], np.float32) + Twc[:3, 3]).astype(np.float32)
+        ms.add_observation(ms.add_map_point(pw, child), child, 0)
+        ms.erase_map_point(int(snap["pts"][10]))
+        reborn = ms.add_map_point(np.array([9.0, 9.0, 9.0], np.float32), parent, first_kf=parent)
+        assert reborn == int(snap["pts"][10])
+        return snap
+
+    runner._snapshot = snapshot
+
+
+def test_runner_launch_matches_jax(monkeypatch):
+    """Both runners' launch on copies of one drifted loop, its keyframe
+    centres first moved 2 cm (seeded) so that the merge carries real
+    corrections. The loop sees each point from one keyframe, monocularly,
+    so its global BA has no unique answer and two float orders part by
+    centimetres: the port's solve is handed the JAX solve's output after
+    its problem is checked equal to the JAX one (the solvers are held
+    against each other in test_torch_local_ba.py and
+    test_torch_global_ba_grouped.py)."""
+    cfg, jms, _, _ = build_drifted_loop(seed=3)
+    kfs = jms.keyframe_ids()
+    jms.kf_Tcw[kfs[1:], :3, 3] += np.random.default_rng(3).normal(
+        0.0, 0.02, (len(kfs) - 1, 3)).astype(np.float32)
+    before = jms.kf_Tcw[kfs].copy()
+    tms = map_store_from_jax(jms)
+    solved = []
+
+    def jax_solve(prob, *a, **k):
+        out = solve_j(prob, *a, **k)
+        solved.append((prob, out))
+        return out
+
+    def port_solve(prob, camera, inv_sigma2, n_iters=10, stop_check=None):
+        jprob, (cam, pts) = solved[0]
+        for f in jprob._fields:
+            np.testing.assert_array_equal(getattr(prob, f).numpy(), np.asarray(getattr(jprob, f)))
+        assert n_iters == GBA_ITERS and stop_check is None
+        return np.asarray(cam), np.asarray(pts)
+
+    solve_j = JR.solve_global_ba
+    monkeypatch.setattr(JR, "solve_global_ba", jax_solve)
+    monkeypatch.setattr(TR, "solve_global_ba", port_solve)
+    j = JR.GlobalBARunner(cfg, jms, contextlib.nullcontext())
+    t = TR.GlobalBARunner(slam_config_from_jax(cfg), tms, device="cpu")
+    _grow_after_snapshot(j, JFrameData)
+    _grow_after_snapshot(t, FrameData)
+    j.launch(n_iters=GBA_ITERS)
+    t.launch(n_iters=GBA_ITERS)
+    assert t.n_completed == j.n_completed == 1 and 0 < t.last_edges < 4096
+    np.testing.assert_array_equal(tms.kf_valid, jms.kf_valid)
+    moved = np.abs(tms.kf_Tcw[kfs] - before)[:, :3, 3].max(axis=1)
+    assert (moved[1:] > 10 * POSE_TOL).all()                 # the solve moved every free pose
+    kfs = jms.keyframe_ids()                                  # and the child keyframe
+    np.testing.assert_allclose(tms.kf_Tcw[kfs], jms.kf_Tcw[kfs], atol=POSE_TOL)
+    np.testing.assert_array_equal(tms.mp_valid, jms.mp_valid)
+    live = jms.mp_valid
+    assert np.abs(tms.mp_pos[live] - jms.mp_pos[live]).max() < PT_TOL
 
 
 # ---- the port alone --------------------------------------------------------------
@@ -265,6 +357,14 @@ def test_recycled_point_slot_is_not_clobbered():
     staged = result[1][10]
     assert not np.allclose(staged, pos_before, atol=1e-3)
     assert not np.allclose(ms.mp_pos[reborn], staged, atol=1e-3)
+
+
+def test_global_ba_on_a_loop_needs_a_runner(drifted):
+    cfg, ms, _, _, tvoc = drifted
+    tcfg = slam_config_from_jax(cfg)
+    with pytest.raises(ValueError, match="gba_runner"):
+        TCloser(tcfg, map_store_from_jax(ms), tvoc, TDB(tvoc, cfg.max_keyframes),
+                fix_scale=False, device="cpu")
 
 
 def test_threaded_modes_raise():

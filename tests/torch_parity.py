@@ -191,8 +191,9 @@ def jax_loop_anchor(perturb=None):
     chip_smoke.py's [17] lap (chip_smoke.drive_loop_lap), with the fused
     path on in the exact modes. The source of chip_smoke.py's JAX_CPU_LOOP;
     with `perturb` ("noise<seed>", chip_smoke.loop_lap_frames) the same lap
-    under +-1e-3 grey levels of noise, the source of its spread. About 20
-    min and 4 GB on the CPU."""
+    under +-1e-3 grey levels of noise, the source of its spread, and with
+    "clean" the lap rendered without its +-2 grey levels of sensor noise.
+    About 20 min and 4 GB on the CPU."""
     from orb_slam2_detailed_comments_tpu.frontend.tracking import Sensor
     from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera
     from orb_slam2_detailed_comments_tpu.system import System
@@ -395,7 +396,7 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/torch_parity.py replay SENSOR [FIRST LAST]
     #     [xla-levels]: replay_local_mapper
     # JAX_PLATFORMS=cpu python tests/torch_parity.py gba: jax_gba_anchor
-    # JAX_PLATFORMS=cpu python tests/torch_parity.py loop [noise<seed> ...]:
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py loop [noise<seed>|clean ...]:
     #     jax_loop_anchor (the lap, or the lap under each perturbation)
     # JAX_PLATFORMS=cpu python tests/torch_parity.py loop_map: jax_loop_map_anchor
     import sys
