@@ -73,6 +73,19 @@ device time and its bound. Then it drives the port at full size:
           essential graph, the keyframe errors against the truth and the
           global BA's robust cost against the JAX LoopCloser's on the same
           map (JAX_CPU_LOOP_MAP); the same times as [17].
+  [19]    the asynchronous pipeline: (a) [10]'s stereo phase through
+          System(..., async_mapping=True), waiting for the mapping worker
+          after each frame: [10]'s limits against the JAX anchors, every
+          keyframe processed by the worker, no host sync in a local-BA
+          solve, and whether its keyframes, points and exported trajectory
+          are bit-identical to [10]'s; (b) tools/bench_e2e.py's loop at full
+          KITTI width (1241x376, 2000 features, E2E_FRAMES frames: one lap
+          of a 25 m circle and the revisit that closes it), free-running,
+          with System at its stereo defaults (loop closing and the global
+          BA on) and then async: frames tracked, loops closed, exported ATE
+          (limits at E2E_*), keyframes, map points, ms a frame (median, p90,
+          max after the warm-up), the mapper's n_processed, n_ba_aborted
+          and n_ba_stale and the global-BA runner's counts.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
@@ -865,6 +878,25 @@ def drive_system(slam, sensor, poses, frames, sync=lambda: None):
                 reloc_ms=reloc_ms)
 
 
+def map_state(slam):
+    """A System's keyframes (valid, poses), map points (valid, positions of
+    the valid ones) and exported trajectory (frame ids, poses), as host
+    arrays: [19](a) compares them bit for bit with [10]'s."""
+    from orb_slam2_detailed_comments_tpu_torch.io.trajectory import recover_frame_trajectory
+    m = slam.map
+    rec = recover_frame_trajectory(slam.tracker.trajectory, m)
+    return {"keyframes": (m.kf_valid[:m.n_kf].copy(), m.kf_Tcw[:m.n_kf].copy()),
+            "points": (m.mp_valid.copy(), m.mp_pos[m.mp_valid].copy()),
+            "trajectory": (np.asarray([f for f, _, _ in rec]),
+                           np.asarray([T for _, _, T in rec], np.float32))}
+
+
+def same_state(a, b):
+    """Per part of map_state: whether the two are bit-identical."""
+    return {k: all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a[k], b[k]))
+            for k in a}
+
+
 # ---- [17] a loop lap through System with loop closing on ------------------------
 # tests/test_loop_sequence.py's lap (CylinderWorld of radius 8, the camera on
 # a 4 m circle looking outward, the last OVERLAP frames revisiting the first
@@ -1201,6 +1233,33 @@ def drive_loop_map(lc, sync=lambda: None):
         call_ms.append(1e3 * (time.perf_counter() - t0))
     lc._correct_loop = correct
     return closed, call_ms
+
+
+# ---- [19] the asynchronous pipeline ---------------------------------------------
+# (a) [10]'s stereo phase through System(async_mapping=True), drained after
+# each frame; (b) tools/bench_e2e.py's loop at full KITTI width, sync and
+# async: E2E_FRAMES frames, one lap and the revisit that closes it (the
+# motion per frame of examples/bench_e2e.py). Sync must track E2E_TRACKED_SHARE of the
+# frames, async at least sync's count less E2E_ASYNC_SLACK (5% of the
+# frames), both close a loop and keep the exported ATE under E2E_ATE_SHARE
+# of the travel (the JAX package's async lap gate, tests/test_loop_sequence.py:177).
+# No JAX anchor: past 128 stored keyframes the JAX keyframe store corrupts
+# fuse and triangulation (ROADMAP.md C.1).
+E2E_FRAMES, E2E_LAPS, E2E_OVERLAP = 265, 1.0, 31
+E2E_TRACKED_SHARE = 0.98
+E2E_ASYNC_SLACK = 13
+E2E_ATE_SHARE = 0.02
+ASYNC_WAIT_S = 300.0     # the longest wait for the mapping worker or a global BA
+E2E_RENDER_WORKERS = 8   # spawned processes that render (b)'s frames (the same images)
+
+
+def _load_tool(name):
+    """A script of tools/ as a module (tools is not a package; on the path,
+    the processes it spawns can import it too)."""
+    import importlib
+    if str(REPO / "tools") not in sys.path:
+        sys.path.insert(0, str(REPO / "tools"))
+    return importlib.import_module(name)
 
 
 def main() -> int:
@@ -1605,18 +1664,16 @@ def main() -> int:
         solves.append((prob.cam_Tcw.shape[0], n_sync))
         return out
 
-    LM.local_bundle_adjustment = counted_solve
-    systems = {}
-    for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=10):
-        poses, frames = render_sequence(sensor)
-        kw = slam_config_kwargs(sensor)
-        cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
-                         fps=kw["fps"], th_depth=kw["th_depth"])
-        slam = System(cfg, sensors[sensor], enable_loop_closing=False, device=dev)
-        systems[sensor] = slam
+    def system_phase(phase, sensor, slam, poses, frames, sync=torch.cuda.synchronize):
+        """Drive a System phase (drive_system) with the local-BA solves
+        counted, check its launches and hold it to the JAX System's anchors."""
+        LM.local_bundle_adjustment = counted_solve
         n_solves = len(solves)
         zero_counts()
-        res = drive_system(slam, sensor, poses, frames, sync=torch.cuda.synchronize)
+        try:
+            res = drive_system(slam, sensor, poses, frames, sync=sync)
+        finally:
+            LM.local_bundle_adjustment = local_bundle_adjustment
         n_fed = len(frames) + SYS_BLANK + (SYS_REVISITS if res["relocalized"] is None
                                            else res["relocalized"] + 1)
         n = check_path(f"System {sensor}", n_fed, stereo=sensor == "stereo")
@@ -1658,7 +1715,18 @@ def main() -> int:
             raise AssertionError(f"System {sensor}: ATE {res['ate_m']} m, JAX {ref['ate_m']} m")
         if not phase_solves:
             raise AssertionError(f"System {sensor}: local BA never ran")
-    LM.local_bundle_adjustment = local_bundle_adjustment
+        return res
+
+    systems, system_runs = {}, {}
+    for phase, sensor in enumerate(("stereo", "rgbd", "mono"), start=10):
+        poses, frames = render_sequence(sensor)
+        kw = slam_config_kwargs(sensor)
+        cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
+                         fps=kw["fps"], th_depth=kw["th_depth"])
+        slam = System(cfg, sensors[sensor], enable_loop_closing=False, device=dev)
+        systems[sensor] = slam
+        system_runs[sensor] = (system_phase(phase, sensor, slam, poses, frames),
+                               map_state(slam), poses, frames)
 
     # ---- [13] local BA per bucket on synthetic problems ----
     clock()
@@ -1860,14 +1928,17 @@ def main() -> int:
         i, j = (torch.from_numpy(pr[k]).long().to(dev) for k in ("edge_i", "edge_j"))
         return float(log_sim3(Sji @ Sk[i] @ sim3_inverse(Sk[j])).norm(dim=1).mean())
 
+    graphs = {}     # K -> circle_pose_graph(K): two cases share K = 1408
     for Kn, backend, n_iters in POSE_GRAPH_CASES:
-        pr, S_true, S_est = circle_pose_graph(Kn)
+        if Kn not in graphs:
+            graphs[Kn] = circle_pose_graph(Kn)
+        pr, S_true, S_est = graphs[Kn]
         pgp = PoseGraphProblem(**pr)
         taken = pose_graph_backend(pgp, backend)
         solve = functools.partial(optimize_pose_graph, pgp, n_iters=n_iters, backend=backend,
                                   device=dev)
-        S_opt, n_sync = count_syncs(solve)
-        _, ms_pg = _frame_ms(solve, n=1)
+        # one solve, timed and its host syncs counted
+        (S_opt, n_sync), ms_pg = _frame_ms(lambda: count_syncs(solve), n=1)
         k_one, busy_one = _profile_frame(functools.partial(optimize_pose_graph, pgp, n_iters=1,
                                                            backend=backend, device=dev))
         S_opt = S_opt.cpu().numpy()
@@ -2056,6 +2127,90 @@ def main() -> int:
             or costs[0][0] != ref["gba"][0]["edges"] or any(s_ for _, s_ in map_gba) \
             or [p for p, _ in map_gba] != ["grouped"]:
         raise AssertionError(f"[18] global BA {costs} {map_gba}, JAX {ref['gba']}")
+
+    # ---- [19] the asynchronous pipeline ----
+    clock()
+    e2e = _load_tool("bench_e2e")
+    # (a) [10]'s stereo frames through the async System, drained after each frame
+    _, state10, poses, frames = system_runs["stereo"]
+    kw = slam_config_kwargs("stereo")
+    cfg = SlamConfig(camera=PinholeCamera(**kw["camera"]), orb=OrbConfig(**kw["orb"]),
+                     fps=kw["fps"], th_depth=kw["th_depth"])
+    slam = System(cfg, Sensor.STEREO, enable_loop_closing=False, async_mapping=True, device=dev)
+
+    def drained():
+        slam.local_mapper.wait_idle(ASYNC_WAIT_S)
+        torch.cuda.synchronize()
+
+    try:
+        system_phase("19a", "stereo", slam, poses, frames, sync=drained)
+    finally:
+        slam.shutdown()
+    lm = slam.local_mapper
+    same = same_state(map_state(slam), state10)
+    print(f"[19a] async System stereo: the worker processed {lm.n_processed} of {slam.map.n_kf} "
+          f"keyframes; local BA aborted {lm.n_ba_aborted}, stale {lm.n_ba_stale}; bit-identical "
+          f"to [10]'s run: {same}", flush=True)
+    if lm.n_processed != slam.map.n_kf:
+        raise AssertionError(f"[19a] the worker processed {lm.n_processed} of {slam.map.n_kf}")
+
+    # (b) the end-to-end lap, free-running, sync then async
+    clock()
+    t0 = time.perf_counter()
+    scene = e2e.render_loop(E2E_FRAMES, E2E_LAPS, E2E_OVERLAP, workers=E2E_RENDER_WORKERS)
+    ms_render = 1e3 * (time.perf_counter() - t0)
+    travel = 2 * math.pi * 25.0 * E2E_LAPS      # render_loop's camera circle: 25 m
+    runs = {}
+    for mode in ("sync", "async"):
+        zero_counts()
+        out = e2e.run_e2e(async_mapping=mode == "async", device=dev, progress_every=0,
+                          scene=scene)
+        n = check_path(f"[19b] e2e {mode}", E2E_FRAMES, stereo=True)
+        for k in ("fast_pyramid", "orb_desc", "stereo_sad"):
+            path_launches[k] += n[k]
+        r = runs[mode] = out["extra"]
+        st = r["stage_ms"]
+        print(f"[19b] e2e {mode} (1241x376, 2000 features, {E2E_FRAMES} frames rendered in "
+              f"{ms_render / 1e3:.1f} s): tracked {r['tracked']}, loops closed "
+              f"{r['loops_closed']} (frame, ms) {r['loop_frames_ms']}, keyframes {r['keyframes']} "
+              f"live of {r['keyframes_allocated']}, map points {r['map_points']}, exported ATE "
+              f"{r['ate_m']:.4f} m over {r['exported_frames']} frames (limit "
+              f"{E2E_ATE_SHARE * travel:.4f} m); ms a frame (after {r['warmup_excluded']}) median "
+              f"{r['median_ms']:.3f}, p90 {r['p90_ms']:.3f}, max {r['max_ms']:.3f}, mean "
+              f"{r['mean_ms']:.3f} ({out['value']:.3f} fps); fused {r['fused_frames']}, staged "
+              f"{r['staged_frames']}; mapper n_processed {r['n_processed']}, local BA aborted "
+              f"{r['n_ba_aborted']}, stale {r['n_ba_stale']}, keyframes deferred "
+              f"{r['n_kf_deferred']}; global BA completed "
+              f"{r['gba_completed']}, aborted {r['gba_aborted']}; frames {r['wall_s']:.1f} s, "
+              f"drain {r['drain_s']:.1f} s", flush=True)
+        for kf, ms_, stage_ms in r["loop_calls_ms"]:
+            print(f"[19b] e2e {mode} loop-closing call (keyframe {kf}): {ms_:.3f} ms; stages ms: "
+                  f"{loop_stages(stage_ms)}", flush=True)
+        print(f"[19b] e2e {mode} exported ATE m before and after each loop correction "
+              f"(keyframe, before, after) {r['loop_ate_m']}; RMS error m by 50-frame window "
+              f"{r['error_by_window_m']}", flush=True)
+        for name in ("tracker", "local_mapper", "loop_closer"):
+            print(f"[19b] e2e {mode} {name} stages, median ms (count): " + ", ".join(
+                f"{k} {v['median_ms']:.3f} ({v['n']})" for k, v in sorted(st[name].items())),
+                flush=True)
+    s_, a_ = runs["sync"], runs["async"]
+    misses = []
+    if s_["tracked"] < E2E_TRACKED_SHARE * E2E_FRAMES:
+        misses.append(f"sync tracked {s_['tracked']} of {E2E_FRAMES}")
+    if a_["tracked"] < s_["tracked"] - E2E_ASYNC_SLACK:
+        misses.append(f"async tracked {a_['tracked']}, sync {s_['tracked']}")
+    for mode, r in runs.items():
+        if r["loops_closed"] < 1:
+            misses.append(f"{mode} closed no loop")
+        if not r["ate_m"] < E2E_ATE_SHARE * travel:
+            misses.append(f"{mode} ATE {r['ate_m']} m")
+        if r["gba_completed"] + r["gba_aborted"] < r["loops_closed"]:
+            misses.append(f"{mode}: {r['gba_completed']} + {r['gba_aborted']} global BAs for "
+                          f"{r['loops_closed']} loops")
+    if a_["n_processed"] <= 0 or a_["n_ba_stale"] > a_["keyframes_allocated"]:
+        misses.append(f"async n_processed {a_['n_processed']}, stale {a_['n_ba_stale']}")
+    if misses:
+        raise AssertionError("[19b] " + "; ".join(misses))
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -18,70 +18,122 @@ the live map). A snapshot of the whole-map BA problem is taken, solved
     keyframe: x_new = Twc_GBA(ref) * Tcw_befGBA(ref) * x_old
     (reference: LoopClosing.cc:1189-1223)
 
-Only the JAX package's default, inline mode is ported: launch() takes the
-snapshot, solves and merges in the caller's thread, and nothing can run
-between the three, so no map lock is taken. The threaded mode
-(async_mode=True) is ROADMAP.md A.11c and raises. The generation counter
-and the stop event are kept as the JAX package has them: a stop or a
-launch bumps the generation, and a solve merges only for the current one.
+In the default, inline mode launch() takes the snapshot, solves and merges
+in the caller's thread. With async_mode=True, the reference's topology,
+the solve runs on a daemon thread with its own CUDA stream and never holds
+the map lock: the snapshot is taken under the lock as host arrays and
+uploaded on the solving thread's stream, the solve polls a stop event
+between chunks of LM iterations (the reference's mbStopGBA), and the
+merge takes the lock again. A stop or a launch bumps the generation and
+sets the running solve's event (each launch has an event of its own); a
+solve merges only if, under the lock, its event is clear and its
+generation current, so a thread that waited at the lock while a loop
+correction held it cannot merge a stale result. The first exception of a
+solving thread is kept and raised on the caller's thread by check(),
+wait(), request_stop() and the next launch().
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from ..optim.local_ba import BAProblem
 from ..state.map_store import MapStore
 from ..utils.config import SlamConfig
 from .local_mapping import build_global_ba_problem, solve_global_ba
 
+JOIN_TIMEOUT_S = 120.0   # the longest wait for a solving thread
+
 
 class GlobalBARunner:
     def __init__(self, config: SlamConfig, map_store: MapStore, async_mode: bool = False,
-                 device="cuda"):
-        if async_mode:
-            raise NotImplementedError(
-                "the threaded global BA runner (async_mode=True) is not ported: ROADMAP.md A.11c")
+                 device="cuda", map_lock=None):
+        if async_mode and map_lock is None:
+            raise ValueError("the threaded global BA (async_mode=True) needs the map lock")
         self.config = config
         self.map = map_store
-        self.device = device
+        self.async_mode = async_mode
+        self.device = torch.device(device)
+        self.lock = map_lock if map_lock is not None else contextlib.nullcontext()
         sf = config.orb.scale_factor
         self.inv_sigma2 = np.array([1.0 / sf ** (2 * i) for i in range(config.orb.n_levels)],
                                    np.float32)
+        self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._gen = 0
+        self._meta_lock = threading.Lock()
+        self._error: Optional[BaseException] = None
         self.n_completed = 0
         self.n_aborted = 0
         self.last_edges = 0    # edges of the last snapshot's problem
+        # called between solver chunks, after the stop poll: lets a test slow
+        # a running solve down deterministically
+        self._chunk_hook = None
 
     # ------------------------------------------------------------------
 
-    def request_stop(self):
-        """Stop a running solve (reference: LoopClosing.cc:699-712). Inline,
-        none runs between calls; the generation still moves on."""
-        self._gen += 1
-        self._stop.set()
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
 
-    def wait(self):
-        """Nothing runs in the background in the inline mode."""
+    def check(self):
+        """Raise the first exception of a solving thread, if one failed."""
+        if self._error is not None:
+            raise RuntimeError("the global BA thread failed") from self._error
+
+    def request_stop(self, join: bool = True, timeout: float = JOIN_TIMEOUT_S):
+        """Stop a running solve (reference: LoopClosing.cc:699-712). The
+        generation moves on, so a pending merge is void even when the join
+        times out (the caller may hold the lock the merging thread waits
+        for; the loop closer, which does, passes join=False)."""
+        with self._meta_lock:
+            self._gen += 1
+            self._stop.set()
+            th = self._thread
+        if join and th is not None and th is not threading.current_thread():
+            th.join(timeout)
+        self.check()
+
+    def wait(self, timeout: float = JOIN_TIMEOUT_S):
+        """Join a running solve; raise if it does not end within `timeout`
+        or if it failed."""
+        th = self._thread
+        if th is not None and th is not threading.current_thread():
+            th.join(timeout)
+            if th.is_alive():
+                raise TimeoutError(f"the global BA thread still runs after {timeout} s")
+        self.check()
 
     def launch(self, n_iters: int = 10):
-        """Snapshot, solve and merge a whole-map BA."""
-        self._gen += 1
-        self._stop.set()
-        stop = threading.Event()
-        self._stop = stop
-        gen = self._gen
-        snap = self._snapshot()
+        """Snapshot, solve and merge a whole-map BA. A running solve is
+        stopped first, without a join: it ends at its next poll or is voided
+        at its merge, so a launch under the map lock never waits for it."""
+        self.check()
+        with self._meta_lock:
+            self._gen += 1
+            self._stop.set()
+            stop = threading.Event()
+            self._stop = stop
+            gen = self._gen
+        with self.lock:
+            snap = self._snapshot()
         if snap is None:
             return
-        self._solve_and_merge(snap, n_iters, stop, gen)
+        if not self.async_mode:
+            self._solve_and_merge(snap, n_iters, stop, gen)
+            return
+        self._thread = threading.Thread(target=self._run, args=(snap, n_iters, stop, gen),
+                                        name="global-ba", daemon=True)
+        self._thread.start()
 
     # ------------------------------------------------------------------
 
     def _snapshot(self):
-        built = build_global_ba_problem(self.map, self.device)
+        # host tensors: the solve uploads them on its own thread's stream
+        built = build_global_ba_problem(self.map, "cpu")
         if built is None:
             return None
         prob, kfs, pts = built
@@ -94,14 +146,45 @@ class GlobalBARunner:
             "pt_first_kf": self.map.mp_first_kf[pts].copy(),
         }
 
+    def _run(self, snap, n_iters: int, stop: threading.Event, gen: int):
+        """The solving thread. It launches on a stream of its own, drained
+        before the thread ends: an interrupted solve leaves work queued on
+        tensors the thread is about to free."""
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        try:
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                try:
+                    self._solve_and_merge(snap, n_iters, stop, gen)
+                finally:
+                    if stream is not None:
+                        stream.synchronize()
+        except BaseException as e:   # kept for the caller's thread: check()
+            with self._meta_lock:
+                if self._error is None:
+                    self._error = e
+
     def _solve_and_merge(self, snap, n_iters: int, stop: threading.Event, gen: int):
-        cam_new, pts_new = solve_global_ba(snap["prob"], self.config.camera, self.inv_sigma2,
-                                           n_iters=n_iters)
-        if stop.is_set() or gen != self._gen:
-            self.n_aborted += 1
+        def stop_check():
+            if self._chunk_hook is not None:
+                self._chunk_hook()
+            return stop.is_set()
+
+        prob = BAProblem(*(t.to(self.device) for t in snap["prob"]))
+        result = solve_global_ba(prob, self.config.camera, self.inv_sigma2, n_iters=n_iters,
+                                 stop_check=stop_check if self.async_mode else None)
+        if result is None:       # interrupted: discarded, as the reference's
+            with self._meta_lock:
+                self.n_aborted += 1
             return
-        self._merge(snap, cam_new, pts_new)
-        self.n_completed += 1
+        cam_new, pts_new = result
+        with self.lock:
+            # a newer launch or stop voided this solve while it ran or while
+            # it waited for the lock
+            if stop.is_set() or gen != self._gen:
+                self.n_aborted += 1
+                return
+            self._merge(snap, cam_new, pts_new)
+            self.n_completed += 1
 
     # ------------------------------------------------------------------
 
@@ -110,7 +193,7 @@ class GlobalBARunner:
         propagation (reference: LoopClosing.cc:1124-1234)."""
         mp = self.map
         kfs = snap["kfs"]
-        cam_free = snap["prob"].cam_free.cpu().numpy()
+        cam_free = snap["prob"].cam_free.numpy()
 
         # corrected pose per keyframe; poses before correction (mTcwBefGBA)
         corrected: Dict[int, np.ndarray] = {}

@@ -2,17 +2,23 @@
 
 Counterpart of orb_slam2_detailed_comments_tpu/backend/local_mapping.py,
 the replacement of the LocalMapping thread (reference:
-src/LocalMapping.cc). It runs synchronously per new keyframe:
+src/LocalMapping.cc). It runs per new keyframe, in the caller's thread
+or, under backend/async_pipeline.py, on a worker:
 
   on_new_keyframe
-  ├─ MapPointCulling          (reference :280-327)
-  ├─ CreateNewMapPoints       (reference :336-680) — one batched epipolar
-  │    search over all covisible neighbors + host triangulation and gating
-  ├─ SearchInNeighbors fuse   (reference :688-832) — batched projection fuse
-  ├─ local BA                 (optim.local_ba, Schur dense path)
-  └─ KeyFrameCulling          (reference :966-1082)
-  then the loop closer (backend/loop_closing.py), or the keyframe indexer
-  that keeps the keyframe database fed without one, when one is attached.
+  ├─ prepare_keyframe (changes the map)
+  │  ├─ MapPointCulling        (reference :280-327)
+  │  ├─ CreateNewMapPoints     (reference :336-680) — one batched epipolar
+  │  │    search over all covisible neighbors + host triangulation and gating
+  │  ├─ SearchInNeighbors fuse (reference :688-832) — batched projection fuse
+  │  └─ the local-BA window's snapshot (the fusion, the local BA and the
+  │     keyframe culling wait for a later keyframe while others are queued)
+  ├─ the local-BA solve       (optim.local_ba, Schur dense path; reads only
+  │    the snapshot, so the worker runs it outside the map lock)
+  ├─ the local-BA merge       (discarded if the map moved meanwhile)
+  └─ finish_keyframe: KeyFrameCulling (reference :966-1082), then the loop
+     closer (backend/loop_closing.py), or the keyframe indexer that keeps
+     the keyframe database fed without one, when one is attached.
 
 The matchers and the BA solves run on `device`; the bookkeeping is host
 numpy, as in the JAX package. Each stage is timed by `timer`
@@ -24,7 +30,7 @@ time, serves loop fusion.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Set
 
 import numpy as np
 import torch
@@ -118,23 +124,28 @@ def build_global_ba_problem(mp: MapStore, device="cuda"):
 
 
 def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
-                    stop_check=None):
+                    stop_check=None, chunk: int = 2):
     """Solve a whole-map BAProblem, returning (cam_Tcw, points) as numpy.
     Below FLAT_GBA_MAX_EDGES edges the flat PCG solver takes it; from there
     on the grouped one (optim/global_ba_grouped.py), with the JAX package's
-    schedule (50 CG iterations, damping 1e-5). `stop_check`, the JAX
-    package's interruptible chunked solve for the asynchronous GBA runner,
-    is not ported (ROADMAP.md A.11c) and raises."""
-    if stop_check is not None:
-        raise NotImplementedError(
-            "an interruptible global BA (stop_check) is not ported: ROADMAP.md A.11c")
+    schedule (50 CG iterations, damping 1e-5).
+
+    `stop_check`: a host callable polled before every `chunk` LM iterations
+    (the reference's mbStopGBA, LoopClosing.cc:699-712); when it fires the
+    solve returns None and the caller discards it. Both layouts run one LM
+    schedule across the polls, so a solve it never stops equals the
+    unpolled one bit for bit (the JAX package's flat path restarts the
+    schedule per chunk; ROADMAP.md C records the divergence)."""
     inv_s2 = torch.as_tensor(np.asarray(inv_sigma2, np.float32)).to(prob.points.device)
     if int(prob.edge_cam.shape[0]) >= FLAT_GBA_MAX_EDGES:
         gp = group_global_problem(prob)
-        cam_Tcw, points, _ = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5)
+        out = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5, stop_check, chunk)
     else:
-        cam_Tcw, points, _ = global_bundle_adjustment(prob, camera, inv_s2, n_iters=n_iters)
-    return cam_Tcw.cpu().numpy(), points.cpu().numpy()
+        out = global_bundle_adjustment(prob, camera, inv_s2, n_iters=n_iters,
+                                       stop_check=stop_check, chunk=chunk)
+    if out is None:
+        return None
+    return out[0].cpu().numpy(), out[1].cpu().numpy()
 
 
 class LocalMapper:
@@ -154,6 +165,24 @@ class LocalMapper:
         self._inv_sigma2_t = self._t(self.inv_sigma2)
         self.timer = StageTimer()
         self._dev_kf = None
+        self.kf_counter = 0
+        # interruptible local BA (reference: mbAbortBA, set by
+        # LocalMapping::InsertKeyFrame, LocalMapping.cc:954-957, and polled by
+        # Optimizer::LocalBundleAdjustment between its 5- and 10-iteration
+        # phases, Optimizer.cc:893-935): the asynchronous pipeline
+        # (backend/async_pipeline.py) sets it to "a keyframe is waiting"
+        self.abort_ba_check = None
+        self.n_ba_aborted = 0
+        self.n_kf_deferred = 0    # keyframes whose local BA and culling waited for a later one
+        self._deferred = False
+        # keyframes queued for this mapper and not yet taken up (the async
+        # pipeline's queue): the reference's map holds a keyframe only from
+        # LocalMapping::ProcessNewKeyFrame on, so the mapping steps do not
+        # see them (no triangulation, fusion, local BA or culling with them)
+        self.pending: Set[int] = set()
+        # off-lock local-BA results discarded because a loop correction or a
+        # global-BA merge moved the map during the solve (async mode)
+        self.n_ba_stale = 0
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
@@ -166,12 +195,24 @@ class LocalMapper:
 
     def reset(self):
         self.recent_points.clear()
+        self.kf_counter = 0
         if self._dev_kf is not None:
             self._dev_kf.clear()
 
     # ------------------------------------------------------------------
 
     def on_new_keyframe(self, kf: int, run_ba: bool = True):
+        built = self.prepare_keyframe(kf, run_ba)
+        if built is not None:
+            self._merge_local_ba(built, self._solve_local_ba(built))
+        self.finish_keyframe(kf)
+
+    def prepare_keyframe(self, kf: int, run_ba: bool = True):
+        """The first half of the mapping step, which changes the map
+        (culling, triangulation, fusion), and the local-BA window's
+        snapshot. Returns the built problem or None; the asynchronous
+        pipeline solves it outside the map lock."""
+        self.kf_counter += 1
         # new points created at KF creation join the culling watchlist
         fresh = self.map.kf_mp[kf]
         fresh = fresh[fresh >= 0]
@@ -182,14 +223,42 @@ class LocalMapper:
             self._map_point_culling(kf)
         with self.timer.stage("triangulation"):
             self._create_new_map_points(kf)
-        with self.timer.stage("fusion"):
-            self._search_in_neighbors(kf)
-        if run_ba and self.map.n_keyframes() > 2:
-            self.local_ba(kf)
-        with self.timer.stage("keyframe_culling"):
-            self._keyframe_culling(kf)
+        # while other keyframes wait (only the asynchronous pipeline's queue
+        # can hold them), the reference's LocalMapping::Run leaves the
+        # neighbour fusion, and then the local BA and the keyframe culling,
+        # to a later keyframe, so a mapper that falls behind catches up
+        # (CheckNewKeyFrames, LocalMapping.cc:80-173)
+        if not self._keyframes_waiting():
+            with self.timer.stage("fusion"):
+                self._search_in_neighbors(kf)
+        self._deferred = self._keyframes_waiting()
+        if self._deferred:
+            self.n_kf_deferred += 1
+        elif run_ba and self.map.n_keyframes() > 2:
+            with self.timer.stage("local_ba_build"):
+                return self._build_local_ba(kf)
+        return None
+
+    def finish_keyframe(self, kf: int):
+        """The second half, after the local-BA merge: keyframe culling
+        (unless prepare_keyframe deferred it), then the loop closer (or the
+        keyframe indexer)."""
+        if not self._deferred:
+            with self.timer.stage("keyframe_culling"):
+                self._keyframe_culling(kf)
         if self.loop_closer is not None:
             self.loop_closer.on_new_keyframe(kf)
+
+    def _covisible(self, kf: int, n=None) -> np.ndarray:
+        """The best covisible keyframes (MapStore.get_covisible) but those
+        still queued for this mapper."""
+        c = self.map.get_covisible(kf)
+        if self.pending:
+            c = c[~np.isin(c, np.fromiter(self.pending, np.int64))]
+        return c[:n] if n is not None else c
+
+    def _keyframes_waiting(self) -> bool:
+        return self.abort_ba_check is not None and self.abort_ba_check()
 
     # ------------------------------------------------------------------
 
@@ -219,7 +288,7 @@ class LocalMapper:
         cfg = self.config
         cam = cfg.camera
         n_neighbors = 20 if self.monocular else 10
-        neighbors = mp.get_covisible(kf, n_neighbors)
+        neighbors = self._covisible(kf, n_neighbors)
         if neighbors.size == 0:
             return
 
@@ -396,12 +465,12 @@ class LocalMapper:
         n1 = 20 if self.monocular else 10
         targets = []
         seen = {kf}
-        for nb in mp.get_covisible(kf, n1):
+        for nb in self._covisible(kf, n1):
             if nb not in seen:
                 targets.append(int(nb))
                 seen.add(int(nb))
         for nb in list(targets):
-            for nb2 in mp.get_covisible(nb, 5):
+            for nb2 in self._covisible(nb, 5):
                 if nb2 not in seen:
                     targets.append(int(nb2))
                     seen.add(int(nb2))
@@ -517,19 +586,14 @@ class LocalMapper:
         Optimizer::LocalBundleAdjustment, Optimizer.cc:631-1030)."""
         with self.timer.stage("local_ba_build"):
             built = self._build_local_ba(kf)
-        if built is None:
-            return
-        C = built["prob"].cam_Tcw.shape[0]
-        with self.timer.stage(f"local_ba_solve_{C}cams"):
-            result = self._solve_local_ba(built)
-        with self.timer.stage("local_ba_merge"):
-            self._merge_local_ba(built, result)
+        if built is not None:
+            self._merge_local_ba(built, self._solve_local_ba(built))
 
     def _build_local_ba(self, kf: int):
         """Snapshot the local window into a BAProblem. Returns None if the
         window is degenerate."""
         mp = self.map
-        local = [kf] + [int(x) for x in mp.get_covisible(kf)]
+        local = [kf] + [int(x) for x in self._covisible(kf)]
         local = local[:BA_CAM_CAP - 8]          # leave room for fixed cams
         local_set = set(local)
 
@@ -540,7 +604,7 @@ class LocalMapper:
         fixed = []
         obs_kfs = np.unique(mp.mp_obs_kf[pts][mp.mp_obs_kf[pts] >= 0])
         for k in obs_kfs:
-            if int(k) not in local_set and mp.kf_valid[k]:
+            if int(k) not in local_set and mp.kf_valid[k] and int(k) not in self.pending:
                 fixed.append(int(k))
                 if len(local) + len(fixed) >= BA_CAM_CAP:
                     break
@@ -593,38 +657,69 @@ class LocalMapper:
             np.pad(e_obs, ((0, pad_e), (0, 0))), np.pad(e_oct, (0, pad_e)),
             np.pad(np.ones(E, bool), (0, pad_e)))
         return {"prob": prob, "cams": cams, "local": local, "cam_free": cam_free,
-                "pts": pts, "e_cam": e_cam, "e_pt": e_pt, "E": E}
+                "pts": pts, "e_cam": e_cam, "e_pt": e_pt, "E": E,
+                # staleness guards of a solve made outside the map lock: point
+                # slots are recycled by the free list, and a loop correction or
+                # a global-BA merge moves the whole map (pose_epoch)
+                "pt_first_kf": mp.mp_first_kf[pts].copy(), "pose_epoch": mp.pose_epoch}
 
     def _solve_local_ba(self, built):
         """The reference's 5 + 10 iteration schedule on the window; the
-        result comes back to the host as numpy."""
-        new_cams, new_pts, inlier = local_bundle_adjustment(
-            built["prob"], self.config.camera, self._inv_sigma2_t)
-        return new_cams.cpu().numpy(), new_pts.cpu().numpy(), inlier.cpu().numpy()
+        result comes back to the host as numpy. It reads only the built
+        problem, never the map, so it may run outside the map lock.
+
+        Without `abort_ba_check` the schedule is one call. With it, as the
+        JAX package and the reference (Optimizer.cc:893-935): the 5 robust
+        iterations, a poll, and the 10 plain ones only if no keyframe
+        waits; an aborted solve still returns its first phase. The split
+        renormalizes the poses and re-gates the edges between its two
+        calls, so it is not the one call's function bit for bit
+        (tests/test_torch_async.py)."""
+        prob = built["prob"]
+        cam, inv_s2 = self.config.camera, self._inv_sigma2_t
+        with self.timer.stage(f"local_ba_solve_{prob.cam_Tcw.shape[0]}cams"):
+            if self.abort_ba_check is None:
+                out = local_bundle_adjustment(prob, cam, inv_s2)
+            else:
+                out = local_bundle_adjustment(prob, cam, inv_s2, n_iters_pre=5, n_iters_post=0)
+                if self.abort_ba_check():
+                    self.n_ba_aborted += 1
+                else:
+                    out = local_bundle_adjustment(prob._replace(cam_Tcw=out[0], points=out[1]),
+                                                  cam, inv_s2, n_iters_pre=0, n_iters_post=10)
+            return tuple(a.cpu().numpy() for a in out)
 
     def _merge_local_ba(self, built, result):
         """Write the solved window back and erase the outlier observations
-        (reference: Optimizer.cc:940-1007)."""
+        (reference: Optimizer.cc:940-1007), unless the map moved under an
+        off-lock solve: a moved pose_epoch discards the whole result, a
+        recycled point slot its own row."""
         mp = self.map
-        new_cams, new_pts, inlier = result
-        cams, local, cam_free = built["cams"], built["local"], built["cam_free"]
-        pts, e_cam, e_pt, E = built["pts"], built["e_cam"], built["e_pt"], built["E"]
+        with self.timer.stage("local_ba_merge"):
+            if mp.pose_epoch != built["pose_epoch"]:
+                # the window's linearization point is gone; the next keyframe
+                # runs local BA on the corrected map
+                self.n_ba_stale += 1
+                return
+            new_cams, new_pts, inlier = result
+            cams, local, cam_free = built["cams"], built["local"], built["cam_free"]
+            pts, e_cam, e_pt, E = built["pts"], built["e_cam"], built["e_pt"], built["E"]
 
-        for i, c in enumerate(cams[:len(local)]):
-            if cam_free[i] and mp.kf_valid[c]:
-                mp.kf_Tcw[c] = new_cams[i]
-        same = mp.mp_valid[pts]
-        mp.mp_pos[pts[same]] = new_pts[:len(pts)][same]
+            for i, c in enumerate(cams[:len(local)]):
+                if cam_free[i] and mp.kf_valid[c]:
+                    mp.kf_Tcw[c] = new_cams[i]
+            same = mp.mp_valid[pts] & (mp.mp_first_kf[pts] == built["pt_first_kf"])
+            mp.mp_pos[pts[same]] = new_pts[:len(pts)][same]
 
-        for e in np.nonzero(~inlier[:E])[0]:
-            pi = int(e_pt[e])
-            if not same[pi]:
-                continue
-            p = int(pts[pi])
-            k = cams[e_cam[e]]
-            if mp.mp_valid[p] and mp.kf_valid[k]:
-                mp.erase_observation(p, k)
-        mp.update_normal_and_depth(pts[same & mp.mp_valid[pts]])
+            for e in np.nonzero(~inlier[:E])[0]:
+                pi = int(e_pt[e])
+                if not same[pi]:
+                    continue
+                p = int(pts[pi])
+                k = cams[e_cam[e]]
+                if mp.mp_valid[p] and mp.kf_valid[k]:
+                    mp.erase_observation(p, k)
+            mp.update_normal_and_depth(pts[same & mp.mp_valid[pts]])
 
     def global_ba(self, n_iters: int = 10):
         """Whole-map BA (reference: Optimizer::GlobalBundleAdjustemnt)."""
@@ -653,7 +748,7 @@ class LocalMapper:
         mp = self.map
         close_th = self.config.th_depth * self.config.camera.baseline \
             if self.config.camera.bf > 0 else 0.0
-        for k in mp.get_covisible(kf):
+        for k in self._covisible(kf):
             k = int(k)
             if k == mp.origin_kf or not mp.kf_valid[k]:
                 continue

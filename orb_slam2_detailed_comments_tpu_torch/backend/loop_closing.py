@@ -2,7 +2,8 @@
 
 Counterpart of orb_slam2_detailed_comments_tpu/backend/loop_closing.py,
 the replacement of the LoopClosing thread (reference: src/LoopClosing.cc).
-It runs synchronously per keyframe:
+It runs per keyframe after local mapping, in the caller's thread or on the
+asynchronous pipeline's worker (backend/async_pipeline.py):
 
   on_new_keyframe
   ├─ DetectLoop      (reference :156-388): BoW candidates from the keyframe
@@ -265,9 +266,12 @@ class LoopCloser:
         """reference: LoopClosing::CorrectLoop (LoopClosing.cc:676-973)."""
         mp = self.map
         with self.timer.stage("correct"):
-            # a global BA of a previous loop is stale now (reference :699-712)
+            # a global BA of a previous loop is stale now (reference :699-712).
+            # No join: this runs under the map lock in async mode, where the
+            # solving thread may be waiting for that lock to merge; the
+            # generation guard voids its merge instead
             if self.gba_runner is not None:
-                self.gba_runner.request_stop()
+                self.gba_runner.request_stop(join=False)
 
             # S_cl maps the loop camera to the current one, so the corrected
             # world -> current transform chains the loop keyframe's pose

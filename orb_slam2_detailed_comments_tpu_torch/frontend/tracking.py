@@ -34,11 +34,10 @@ import torch
 
 from ..geometry.se3 import se3_inverse_np, se3_renormalize_np
 from ..interop import desc_to_numpy, desc_to_torch
-from ..models.slam_step import (fused_mono_frame, fused_rgbd_frame, fused_stereo_frame,
-                                unpack_host_blob)
+from ..io.trajectory import resolve_ref
+from ..models.slam_step import (Extracted, extract_mono, extract_rgbd, extract_stereo,
+                                track_extracted, unpack_host_blob)
 from ..ops import matching as M
-from ..ops.orb import Keypoints, extract_orb, extract_orb_batch
-from ..ops.stereo import depth_to_stereo, stereo_match
 from ..optim.pose_gn import pose_optimization
 from ..solvers.initializer import initialize_two_view
 from ..state.frame import FrameData
@@ -78,6 +77,9 @@ class Tracker:
         self.state = TrackingState.NO_IMAGES_YET
         self.timer = StageTimer()
         self.map_lock = contextlib.nullcontext()  # an async caller sets a real lock
+        # the last logged frame's id, reference keyframe, that keyframe's pose
+        # (resolved through culled ones) and the map's pose_epoch at its log
+        self._last_ref = None
 
         orb = config.orb
         self.scale_factors = np.array([orb.scale_factor ** i for i in range(orb.n_levels)], np.float32)
@@ -119,7 +121,10 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _t(self, a, dtype=None) -> torch.Tensor:
-        """numpy -> tensor on the tracker's device."""
+        """numpy (or a tensor: a caller may stage its images on the device a
+        frame ahead) -> tensor on the tracker's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     def _desc(self, a) -> torch.Tensor:
@@ -134,46 +139,40 @@ class Tracker:
     # frame construction
     # ------------------------------------------------------------------
 
-    def _build_frame(self, img, timestamp, n_features=0, img_right=None, depth=None) -> FrameData:
-        """Frame constructor (reference: Frame.cc:53-430)."""
-        cfg = self.config
-        img_t = self._t(img, torch.float32)
+    def _extract(self, img, n_features=0, img_right=None, depth=None) -> Extracted:
+        """The frame's features on the device (the Frame constructor's
+        extraction, Frame.cc:53-430). It reads no map: in async mode the
+        tracking thread runs it outside the map lock, as the reference
+        builds its Frame before Track takes the map lock (Tracking.cc:273)."""
+        orb, cam = self.config.orb, self.config.camera
+        # images go to the device in their native dtype (uint8 stays uint8);
+        # the extraction casts to float32 there
         if img_right is not None:
             # L/R as one leading-axis batch (the reference runs two
             # extraction threads, Frame.cc:158-164)
-            img_r_t = self._t(img_right, torch.float32)
-            pair = extract_orb_batch(torch.stack([img_t, img_r_t]), cfg.orb, n_features)
-            kp = Keypoints(*[a[0] for a in pair])
-            kp_r = Keypoints(*[a[1] for a in pair])
-        else:
-            kp = extract_orb(img_t, cfg.orb, n_features)
-        xy_und_t = cfg.camera.undistort_pixels(kp.xy)
-        xy_und = xy_und_t.cpu().numpy()
-        n = kp.xy.shape[0]
-        ur = np.full(n, -1.0, np.float32)
-        dep = np.full(n, -1.0, np.float32)
-        valid = kp.valid.cpu().numpy()
+            return extract_stereo(torch.stack([self._t(img), self._t(img_right)]), orb, cam,
+                                  n_features)
+        if depth is not None:
+            return extract_rgbd(self._t(img), self._t(depth, torch.float32), orb, cam)
+        return extract_mono(self._t(img), orb, cam, n_features)
 
-        if img_right is not None:
-            ur_t, dep_t = stereo_match(kp, kp_r, img_t, img_r_t, cfg.camera, cfg.orb)
-            ur = ur_t.cpu().numpy()
-            dep = dep_t.cpu().numpy()
-        elif depth is not None:
-            ur_t, dep_t = depth_to_stereo(kp, xy_und_t, self._t(depth, torch.float32), cfg.camera)
-            ur = ur_t.cpu().numpy()
-            dep = dep_t.cpu().numpy()
+    def _build_frame(self, img, timestamp, n_features=0, img_right=None, depth=None) -> FrameData:
+        """Frame constructor (reference: Frame.cc:53-430)."""
+        return self._frame_from_extracted(self._extract(img, n_features, img_right, depth),
+                                          timestamp)
 
+    def _frame_from_extracted(self, e: Extracted, timestamp) -> FrameData:
         f = FrameData(
             frame_id=self.frame_id,
             timestamp=timestamp,
-            xy=xy_und,
-            response=kp.response.cpu().numpy(),
-            octave=kp.octave.cpu().numpy(),
-            angle=kp.angle.cpu().numpy(),
-            desc=desc_to_numpy(kp.desc),
-            valid=valid,
-            ur=ur,
-            depth=dep,
+            xy=e.xy_und.cpu().numpy(),
+            response=e.kp.response.cpu().numpy(),
+            octave=e.kp.octave.cpu().numpy(),
+            angle=e.kp.angle.cpu().numpy(),
+            desc=desc_to_numpy(e.kp.desc),
+            valid=e.kp.valid.cpu().numpy(),
+            ur=e.ur.cpu().numpy(),
+            depth=e.depth.cpu().numpy(),
         )
         self.frame_id += 1
         return f
@@ -222,16 +221,19 @@ class Tracker:
         """One frame program: two-stage tracking against the device-resident
         local map (models/slam_step.fused_*_frame + DeviceLocalMap). Falls
         back to the staged state machine, on the same extracted frame,
-        whenever the local map is too thin or the inlier gate fails."""
+        whenever the local map is too thin or the inlier gate fails. The
+        extraction half runs first, outside the map lock."""
+        with self.timer.stage("extract"):
+            feats = self._extract(img, 0, img_right, depth)
         with self.map_lock:
+            self._update_last_frame()
             # local-map set from the last frame's final associations
             kf_ids, ref_kf = self.map.local_keyframes(self.last_frame.mp)
             mp_ids = (self.map.points_of_keyframes(kf_ids)
                       if kf_ids.size else np.empty(0, np.int64))
             if mp_ids.size < 50:
                 self.staged_frames += 1
-                frame = self._build_frame(img, timestamp, 0, img_right=img_right, depth=depth)
-                return self._track(frame)
+                return self._track(self._frame_from_extracted(feats, timestamp))
             self.fused_frames += 1
             mp_ids = counters.keep_best_observed(
                 mp_ids, self.map.mp_n_obs, LOCAL_MP_CAP, "tracking.local_map")
@@ -244,20 +246,14 @@ class Tracker:
                 (self.velocity @ self.last_frame.Tcw).astype(np.float32)))
             dm = self._dev_map
             cam, orb = self.config.camera, self.config.orb
+            mono = self.sensor == Sensor.MONOCULAR
             with self.timer.stage("fused_frame"):
-                # images go to the device in their native dtype (uint8 stays
-                # uint8); the frame programs cast to float32 there
-                if img_right is not None:
-                    blob, desc_dev = fused_stereo_frame(
-                        torch.stack([self._t(img), self._t(img_right)]), Tcw_pred,
-                        dm.d_packed, dm.d_desc, dm.d_valid, orb, cam, float(self.th_depth))
-                elif depth is not None:
-                    blob, desc_dev = fused_rgbd_frame(
-                        self._t(img), self._t(depth, torch.float32), Tcw_pred,
-                        dm.d_packed, dm.d_desc, dm.d_valid, orb, cam, float(self.th_depth))
-                else:
-                    blob, desc_dev = fused_mono_frame(
-                        self._t(img), Tcw_pred, dm.d_packed, dm.d_desc, dm.d_valid, orb, cam)
+                # the tight search radius: 3 for RGB-D, 1 otherwise
+                # (Tracking.cc:1943-1944)
+                blob, desc_dev = track_extracted(
+                    feats, Tcw_pred, dm.d_packed, dm.d_desc, dm.d_valid, orb, cam,
+                    float("inf") if mono else float(self.th_depth),
+                    3.0 if depth is not None else 1.0, check_stereo=not mono)
                 # one blocking pull for the whole host bundle
                 b, ts_, vis = unpack_host_blob(blob.cpu().numpy(), orb.max_keypoints)
 
@@ -336,7 +332,32 @@ class Tracker:
         with self.map_lock:
             return self._track_locked(frame)
 
+    def _update_last_frame(self):
+        """Re-pose the last frame on its reference keyframe when the whole map
+        moved (a loop correction or a global-BA merge: pose_epoch) after the
+        frame was logged (reference: Tracking::UpdateLastFrame,
+        Tracking.cc:1277-1397, re-poses it every frame). In the asynchronous
+        pipeline such a move lands between two frames; without this the
+        motion model predicts from the old map, and the last frame's close
+        points, placed from its old pose, pull the pose back into it. In the
+        synchronous pipeline the map moves only inside a frame's own call,
+        before its log, so the JAX package's behaviour, which lacks the
+        step, is kept bit for bit (ROADMAP.md C.15)."""
+        lf = self.last_frame
+        if lf is None or lf.Tcw is None or self._last_ref is None:
+            return
+        frame_id, ref, T_logged, epoch = self._last_ref
+        if frame_id != lf.frame_id or epoch == self.map.pose_epoch:
+            return
+        Tcorr, live = resolve_ref(self.map, ref)
+        if live < 0:
+            return
+        T_now = Tcorr @ self.map.kf_Tcw[live]
+        lf.Tcw = (lf.Tcw @ se3_inverse_np(T_logged) @ T_now).astype(np.float32)
+        self._last_ref = (frame_id, ref, T_now, self.map.pose_epoch)
+
     def _track_locked(self, frame: FrameData) -> Optional[np.ndarray]:
+        self._update_last_frame()
         if self.state == TrackingState.NO_IMAGES_YET:
             self.state = TrackingState.NOT_INITIALIZED
 
@@ -418,6 +439,12 @@ class Tracker:
         else:
             Tcr = np.eye(4, dtype=np.float32)
         self.trajectory.append((frame.frame_id, frame.timestamp, Tcr, ref, lost))
+        self._last_ref = None
+        if frame.Tcw is not None and ref >= 0 and not lost:
+            Tcorr, live = resolve_ref(self.map, ref)
+            if live >= 0:
+                self._last_ref = (frame.frame_id, ref, Tcorr @ self.map.kf_Tcw[live],
+                                  self.map.pose_epoch)
 
     def reset(self):
         """reference: Tracking::Reset (Tracking.cc:2506-2563)."""
@@ -666,6 +693,8 @@ class Tracker:
         if self.sensor != Sensor.MONOCULAR and lf.Tcw is not None:
             vo = lf.valid & ~has & (lf.depth > 0) & (lf.depth < self.th_depth)
             if vo.any():
+                # a fused last frame keeps its descriptors on the device
+                lf.ensure_desc()
                 cam = self.config.camera
                 z = lf.depth
                 x = (lf.xy[:, 0] - cam.cx) / cam.fx * z

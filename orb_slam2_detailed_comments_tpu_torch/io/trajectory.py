@@ -18,7 +18,7 @@ from ..geometry.so3 import rotmat_to_quat
 from ..state.map_store import MapStore
 
 
-def _resolve_ref(ms: MapStore, ref: int) -> Tuple[np.ndarray, int]:
+def resolve_ref(ms: MapStore, ref: int) -> Tuple[np.ndarray, int]:
     """Walk up the spanning tree to the nearest live keyframe, chaining the
     relative poses frozen at cull time (reference: mTcp)."""
     Tcorr = np.eye(4, dtype=np.float32)
@@ -38,7 +38,7 @@ def recover_frame_trajectory(trajectory: List, ms: MapStore):
     for frame_id, ts, Tcr, ref, lost in trajectory:
         if lost or ref < 0:
             continue
-        Tcorr, live_ref = _resolve_ref(ms, int(ref))
+        Tcorr, live_ref = resolve_ref(ms, int(ref))
         if live_ref < 0:
             continue
         Tcw = Tcr @ Tcorr @ ms.kf_Tcw[live_ref]

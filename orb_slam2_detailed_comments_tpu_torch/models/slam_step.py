@@ -15,6 +15,8 @@ loses its match when that point's match was rejected (ROADMAP fault C.5).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -175,55 +177,78 @@ def _two_stage_track(kp, xy_und, ur, depth, Tcw_pred, packed, mp_desc,
     return bundle, tcw_stats, visible
 
 
+class Extracted(NamedTuple):
+    """A frame's features on the device: the left (or only) image's
+    keypoints, their undistorted pixels, and the right coordinate and depth
+    of each (-1 where none)."""
+    kp: Keypoints
+    xy_und: torch.Tensor
+    ur: torch.Tensor
+    depth: torch.Tensor
+
+
+def extract_stereo(img_pair, orb: OrbConfig, cam: PinholeCamera, n_features: int = 0) -> Extracted:
+    """L/R extraction + SAD stereo matching. img_pair: (2, H, W) stacked L/R
+    (uint8 or float). It reads no map, so the asynchronous pipeline's
+    tracking thread runs it outside the map lock."""
+    img_pair = img_pair.to(torch.float32)
+    pair = extract_orb_batch(img_pair, orb, n_features)
+    kp = Keypoints(*[a[0] for a in pair])
+    kp_r = Keypoints(*[a[1] for a in pair])
+    ur, depth = stereo_match(kp, kp_r, img_pair[0], img_pair[1], cam, orb)
+    return Extracted(kp, cam.undistort_pixels(kp.xy), ur, depth)
+
+
+def extract_mono(img, orb: OrbConfig, cam: PinholeCamera, n_features: int = 0) -> Extracted:
+    """Monocular extraction (no stereo channel)."""
+    kp = extract_orb(img.to(torch.float32), orb, n_features)
+    n = kp.xy.shape[0]
+    none = torch.full((n,), -1.0, device=img.device)
+    return Extracted(kp, cam.undistort_pixels(kp.xy), none, none.clone())
+
+
+def extract_rgbd(img, depth_map, orb: OrbConfig, cam: PinholeCamera) -> Extracted:
+    """Extraction + the virtual right coordinate from the depth map
+    (Frame::ComputeStereoFromRGBD, Frame.cc:1179)."""
+    kp = extract_orb(img.to(torch.float32), orb)
+    xy_und = cam.undistort_pixels(kp.xy)
+    ur, depth = depth_to_stereo(kp, xy_und, depth_map, cam)
+    return Extracted(kp, xy_und, ur, depth)
+
+
+def track_extracted(f: Extracted, Tcw_pred, packed, mp_desc, mp_valid, orb: OrbConfig,
+                    cam: PinholeCamera, th_depth: float, th2: float, check_stereo: bool):
+    """Two-stage local-map tracking of extracted features. Returns
+    (host_blob (see pack_host_blob), desc (N, 8) int32)."""
+    bundle, tcw_stats, visible = _two_stage_track(
+        f.kp, f.xy_und, f.ur, f.depth, Tcw_pred, packed, mp_desc, mp_valid, orb, cam,
+        th_depth, th2, check_stereo)
+    return pack_host_blob(bundle, tcw_stats, visible), f.kp.desc
+
+
 def fused_stereo_frame(img_pair, Tcw_pred, packed, mp_desc, mp_valid,
                        orb: OrbConfig, cam: PinholeCamera, th_depth: float,
                        th2: float = 1.0):
-    """Stereo frame: L/R extraction + SAD stereo matching + two-stage
-    local-map tracking. img_pair: (2, H, W) stacked L/R (uint8 or float).
-    Returns (host_blob (see pack_host_blob), desc (N, 8) int32)."""
-    img_pair = img_pair.to(torch.float32)
-    img_l, img_r = img_pair[0], img_pair[1]
-    pair = extract_orb_batch(img_pair, orb)
-    kp = Keypoints(*[a[0] for a in pair])
-    kp_r = Keypoints(*[a[1] for a in pair])
-    ur, depth = stereo_match(kp, kp_r, img_l, img_r, cam, orb)
-    xy_und = cam.undistort_pixels(kp.xy)
-    bundle, tcw_stats, visible = _two_stage_track(
-        kp, xy_und, ur, depth, Tcw_pred, packed, mp_desc,
-        mp_valid, orb, cam, th_depth, th2, check_stereo=True)
-    return pack_host_blob(bundle, tcw_stats, visible), kp.desc
+    """Stereo frame: extract_stereo + two-stage local-map tracking."""
+    return track_extracted(extract_stereo(img_pair, orb, cam), Tcw_pred, packed, mp_desc,
+                           mp_valid, orb, cam, th_depth, th2, check_stereo=True)
 
 
 def fused_mono_frame(img, Tcw_pred, packed, mp_desc, mp_valid,
                      orb: OrbConfig, cam: PinholeCamera):
-    """Monocular frame (no stereo channel; close-point stats are zero).
-    Returns the same (host_blob, desc) as fused_stereo_frame."""
-    img = img.to(torch.float32)
-    kp = extract_orb(img, orb)
-    xy_und = cam.undistort_pixels(kp.xy)
-    n = kp.xy.shape[0]
-    ur = torch.full((n,), -1.0, device=img.device)
-    depth = torch.full((n,), -1.0, device=img.device)
-    bundle, tcw_stats, visible = _two_stage_track(
-        kp, xy_und, ur, depth, Tcw_pred, packed, mp_desc,
-        mp_valid, orb, cam, th_depth=float("inf"), th2=1.0, check_stereo=False)
-    return pack_host_blob(bundle, tcw_stats, visible), kp.desc
+    """Monocular frame (close-point stats are zero). Returns the same
+    (host_blob, desc) as fused_stereo_frame."""
+    return track_extracted(extract_mono(img, orb, cam), Tcw_pred, packed, mp_desc, mp_valid,
+                           orb, cam, th_depth=float("inf"), th2=1.0, check_stereo=False)
 
 
 def fused_rgbd_frame(img, depth_map, Tcw_pred, packed, mp_desc, mp_valid,
                      orb: OrbConfig, cam: PinholeCamera, th_depth: float,
                      th2: float = 3.0):
-    """RGB-D frame: extraction + virtual right coordinate from the depth
-    map (Frame::ComputeStereoFromRGBD, Frame.cc:1179) + two-stage tracking
-    (th2=3 for RGB-D, Tracking.cc:1943-1944)."""
-    img = img.to(torch.float32)
-    kp = extract_orb(img, orb)
-    xy_und = cam.undistort_pixels(kp.xy)
-    ur, depth = depth_to_stereo(kp, xy_und, depth_map, cam)
-    bundle, tcw_stats, visible = _two_stage_track(
-        kp, xy_und, ur, depth, Tcw_pred, packed, mp_desc,
-        mp_valid, orb, cam, th_depth, th2, check_stereo=True)
-    return pack_host_blob(bundle, tcw_stats, visible), kp.desc
+    """RGB-D frame: extract_rgbd + two-stage tracking (th2=3 for RGB-D,
+    Tracking.cc:1943-1944)."""
+    return track_extracted(extract_rgbd(img, depth_map, orb, cam), Tcw_pred, packed, mp_desc,
+                           mp_valid, orb, cam, th_depth, th2, check_stereo=True)
 
 
 # ---------------------------------------------------------------------------

@@ -9,15 +9,17 @@ C interface (no PyTorch headers, so a build takes seconds):
 `build/` sits at the root of the checkout and is ignored by git. The name
 carries a hash of the sources and flags, so an edited source is rebuilt.
 Every C entry point launches on the stream it is given and returns
-cudaGetLastError(); `check` raises when that is not 0.
+cudaGetLastError(); `check` raises when that is not 0. One lock serializes
+the first build and load, so two threads that reach a kernel first
+neither compile twice nor race on the temporary file.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -39,6 +41,7 @@ _SIGNATURES = {
     # img_l, img_r, H, W, xl, yl, xr, M, idx, N, u_r, best_sad, stream
     "stereo_sad_launch": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P),
 }
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -62,27 +65,35 @@ def build() -> str:
     Returns the compiler's diagnostics (ptxas register and shared-memory
     use per kernel), empty when nothing was built."""
     out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return res.stderr
+    with _BUILD_LOCK:
+        if out.exists():
+            return ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+        return res.stderr
 
 
-@functools.lru_cache(maxsize=None)
+_library = None
+
+
 def library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    global _library
+    if _library is None:
+        build()
+        with _BUILD_LOCK:
+            if _library is None:
+                lib = ctypes.CDLL(str(library_path()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _library = lib
+    return _library
 
 
 def check(rc: int, name: str) -> None:

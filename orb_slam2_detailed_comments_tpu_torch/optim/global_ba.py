@@ -155,20 +155,28 @@ def _gba_iteration(cam_Tcw, points, prob: BAProblem, active, cam_params,
 
 def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
                              n_iters: int = 10, cg_iters: int = 50,
-                             damping: float = 1e-5):
+                             damping: float = 1e-5, stop_check=None, chunk: int = 2):
     """LM iterations with PCG-Schur inner solves (the reference runs 10 or
     20 LM iterations for global BA, Optimizer.cc:80 / Tracking.cc:1089).
     Robust kernel active on the first half of the iterations only. A step
     is accepted only if it does not increase the robust objective; a
-    rejected one raises the damping (g2o's Levenberg rollback)."""
+    rejected one raises the damping (g2o's Levenberg rollback). None when
+    `stop_check` stopped it (solve_lm)."""
     return solve_lm(prob, cam, inv_sigma2_levels, n_iters, cg_iters, damping,
-                    flat_reducer(prob))
+                    flat_reducer(prob), stop_check, chunk)
 
 
 def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: int,
-             damping: float, red: Reducer):
+             damping: float, red: Reducer, stop_check=None, chunk: int = 2):
     """The LM schedule of global_bundle_adjustment with its sums taken by
-    `red`. Returns (cam_Tcw, points, edge_inlier over prob's edges)."""
+    `red`. Returns (cam_Tcw, points, edge_inlier over prob's edges).
+
+    `stop_check`, a host callable, is polled before every `chunk` LM
+    iterations of each phase (the reference's mbStopGBA, polled between g2o
+    iterations, LoopClosing.cc:699-712); when it returns True the solve
+    returns None. The damping, the cost and the activation carry across
+    the polls, so a solve the check never stops is the unpolled solve, op
+    for op; a poll reads no device value."""
     dev = prob.points.device
     cam_params = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
     is_stereo = prob.edge_obs[:, 2] >= 0.0
@@ -178,7 +186,9 @@ def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: in
         lam = torch.full((), damping, dtype=torch.float32, device=dev)   # no host copy
         c_cur = _robust_cost(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
                              use_kernel)
-        for _ in range(n):
+        for i in range(n):
+            if stop_check is not None and i % chunk == 0 and stop_check():
+                return None
             cand_c, cand_p = _gba_iteration(
                 cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
                 use_kernel, lam, cg_iters, red)
@@ -193,14 +203,20 @@ def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: in
         return cam_Tcw, points
 
     n_pre = max(n_iters // 2, 1)
-    cam_Tcw, points = lm_phase(n_pre, prob.cam_Tcw, prob.points, prob.edge_valid, True)
+    out = lm_phase(n_pre, prob.cam_Tcw, prob.points, prob.edge_valid, True)
+    if out is None:
+        return None
+    cam_Tcw, points = out
 
     # chi2-gate outliers before dropping the robust kernel (the reference
     # erases outlier edges between its two optimize() calls,
     # Optimizer.cc:916-935)
     chi2_mid, behind_mid = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
     active = prob.edge_valid & (chi2_mid <= chi2_th) & ~behind_mid
-    cam_Tcw, points = lm_phase(n_iters - n_pre, cam_Tcw, points, active, False)
+    out = lm_phase(n_iters - n_pre, cam_Tcw, points, active, False)
+    if out is None:
+        return None
+    cam_Tcw, points = out
 
     cam_Tcw = se3_renormalize(cam_Tcw)
     chi2, behind = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)

@@ -6,23 +6,31 @@ builds the map, vocabulary, keyframe database and the pipeline stages,
 dispatches frames per sensor, and supports localization-only mode, reset,
 map checkpoints and trajectory export.
 
-The stages run synchronously per keyframe, as in the JAX package's
-default: the Tracker, then on each new keyframe the LocalMapper (culling,
-triangulation, fusion, local BA, keyframe culling) and the LoopCloser
-(loop detection, Sim3, loop correction and the global BA after a loop,
-through the inline GlobalBARunner), and the Relocalizer on LOST. With
-enable_loop_closing=False a keyframe indexer takes the loop closer's place
-and keeps the keyframe database fed. The asynchronous mapping pipeline is
-not ported (ROADMAP.md A.11c): async_mapping=True raises
-NotImplementedError.
+By default the stages run synchronously per keyframe, as in the JAX
+package's default: the Tracker, then on each new keyframe the LocalMapper
+(culling, triangulation, fusion, local BA, keyframe culling) and the
+LoopCloser (loop detection, Sim3, loop correction and the global BA after
+a loop, through the inline GlobalBARunner), and the Relocalizer on LOST.
+With enable_loop_closing=False a keyframe indexer takes the loop closer's
+place and keeps the keyframe database fed.
+
+async_mapping=True is the reference's thread topology (System.cc:133-152):
+the LocalMapper and the LoopCloser run on the worker of
+backend/async_pipeline.AsyncLocalMapper and the global BA after a loop on
+a thread of its own (GlobalBARunner(async_mode=True)), all three sharing
+one reentrant map lock with the Tracker. A failure on either thread is
+raised by the next track_* call, and shutdown() joins both with timeouts.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from typing import Optional
 
 import numpy as np
 
+from .backend.async_pipeline import AsyncLocalMapper
 from .backend.gba_runner import GlobalBARunner
 from .backend.local_mapping import LocalMapper
 from .backend.loop_closing import LoopCloser
@@ -74,13 +82,12 @@ class System:
                  enable_loop_closing: bool = True,
                  enable_global_ba_on_loop: bool = True,
                  async_mapping: bool = False, device="cuda"):
-        if async_mapping:
-            raise NotImplementedError(
-                "the asynchronous mapping pipeline is not ported: ROADMAP.md A.11c")
         self.config = config
         self.sensor = sensor
         self.device = device
         self.map = MapStore(config)
+        self.async_mapping = async_mapping
+        self._map_lock = threading.RLock() if async_mapping else contextlib.nullcontext()
 
         # Vocabulary resolution order (the reference loads a pre-trained
         # ORBvoc.txt unconditionally, System.cc:78-94):
@@ -103,9 +110,14 @@ class System:
 
         self.local_mapper = LocalMapper(config, self.map,
                                         monocular=(sensor == Sensor.MONOCULAR), device=device)
-        # the global BA after a loop (reference: LoopClosing.cc:962-965),
-        # inline: snapshot, solve and merge in the loop closer's call
-        self.gba_runner = GlobalBARunner(config, self.map, device=device)
+        if async_mapping:
+            self.local_mapper = AsyncLocalMapper(self.local_mapper, self._map_lock)
+        # the global BA after a loop (reference: LoopClosing.cc:962-965):
+        # inline, snapshot, solve and merge in the loop closer's call; async,
+        # the solve on a thread of its own
+        self.gba_runner = GlobalBARunner(
+            config, self.map, async_mode=async_mapping, device=device,
+            map_lock=self._map_lock if async_mapping else None)
         if self.voc is not None:
             self._wire_place_recognition()
         # _wire_place_recognition runs before the tracker exists (a
@@ -113,6 +125,7 @@ class System:
         # relocalizer is handed over on both paths
         self.tracker = Tracker(config, self.map, sensor, local_mapper=self.local_mapper,
                                relocalizer=self.relocalizer, device=device)
+        self.tracker.map_lock = self._map_lock
 
     # ------------------------------------------------------------------
 
@@ -151,29 +164,39 @@ class System:
         # live set small while plenty of descriptors exist for training
         if not self._pending_voc_train or self.map.n_kf < self._voc_min_kfs:
             return
-        train = np.concatenate([self.map.kf_desc[k][self.map.kf_kp_valid[k]]
-                                for k in self.map.keyframe_ids()], axis=0)
-        n_words = int(min(2048, max(256, len(train) // 8)))
-        self.voc = BinaryVocabulary.train(train, n_words=n_words, n_iters=3,
-                                          device=self.device)
-        self._pending_voc_train = False
-        self._wire_place_recognition()
+        with self._map_lock:      # the worker may be changing the map
+            train = np.concatenate([self.map.kf_desc[k][self.map.kf_kp_valid[k]]
+                                    for k in self.map.keyframe_ids()], axis=0)
+            n_words = int(min(2048, max(256, len(train) // 8)))
+            self.voc = BinaryVocabulary.train(train, n_words=n_words, n_iters=3,
+                                              device=self.device)
+            self._pending_voc_train = False
+            self._wire_place_recognition()
+
+    def _check_threads(self):
+        """Raise a failure of the mapping worker or the global-BA thread."""
+        if self.async_mapping:
+            self.local_mapper.check()
+        self.gba_runner.check()
 
     # ------------------------------------------------------------------
     # frame dispatch (reference: System::TrackMonocular/Stereo/RGBD)
     # ------------------------------------------------------------------
 
     def track_monocular(self, img: np.ndarray, timestamp: float):
+        self._check_threads()
         out = self.tracker.track_monocular(img, timestamp)
         self._maybe_train_vocabulary()
         return out
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float):
+        self._check_threads()
         out = self.tracker.track_stereo(left, right, timestamp)
         self._maybe_train_vocabulary()
         return out
 
     def track_rgbd(self, img: np.ndarray, depth: np.ndarray, timestamp: float):
+        self._check_threads()
         out = self.tracker.track_rgbd(img, depth, timestamp)
         self._maybe_train_vocabulary()
         return out
@@ -189,18 +212,30 @@ class System:
         self.tracker.localization_only = False
         self.tracker.vo_mode = False
 
+    def _quiesce(self):
+        """Let the worker finish its queue and stop a running global BA."""
+        if self.async_mapping:
+            self.local_mapper.wait_idle()
+        self.gba_runner.request_stop(join=True)
+
     def reset(self):
-        self.tracker.reset()
-        if self.loop_closer is not None:
-            self.loop_closer.reset()
-        elif self.kfdb is not None:
-            self.kfdb.clear()
+        self._quiesce()
+        with self._map_lock:
+            self.tracker.reset()
+            if self.loop_closer is not None:
+                self.loop_closer.reset()
+            elif self.kfdb is not None:
+                self.kfdb.clear()
 
     def shutdown(self):
-        """Wait for the global BA runner (reference: System::Shutdown joins
-        the mapping threads and a running global BA, System.cc:444-473);
-        inline, nothing runs in the background."""
-        self.gba_runner.wait()
+        """Join the mapping worker, then a running global BA (reference:
+        System::Shutdown, System.cc:444-473), each with a timeout; raise a
+        failure of either thread."""
+        try:
+            if self.async_mapping:
+                self.local_mapper.shutdown()
+        finally:
+            self.gba_runner.wait()
 
     # ------------------------------------------------------------------
     # introspection (reference: GetTrackingState/GetTrackedMapPoints)
@@ -235,18 +270,21 @@ class System:
         np.savez_compressed(path, **self.map.checkpoint())
 
     def load_map(self, path: str):
-        """Restore a checkpoint. The device mirrors of the old map (the
+        """Restore a checkpoint, after the worker has drained its queue and a
+        running global BA has stopped. The device mirrors of the old map (the
         mapper's keyframe store, the tracker's local map) are dropped, so
         no keyframe id keeps the old map's keypoints."""
         data = dict(np.load(path, allow_pickle=False))
-        self.map = MapStore.restore(self.config, data)
-        self.local_mapper.map = self.map
-        self.local_mapper.reset()
-        self.gba_runner.map = self.map
-        self.tracker.map = self.map
-        if self.tracker._dev_map is not None:
-            self.tracker._dev_map.invalidate()
-        if self.relocalizer is not None:
-            self.relocalizer.map = self.map
-        if self.kfdb is not None:
-            self.local_mapper.loop_closer.map = self.map
+        self._quiesce()
+        with self._map_lock:
+            self.map = MapStore.restore(self.config, data)
+            self.local_mapper.map = self.map
+            self.local_mapper.reset()
+            self.gba_runner.map = self.map
+            self.tracker.map = self.map
+            if self.tracker._dev_map is not None:
+                self.tracker._dev_map.invalidate()
+            if self.relocalizer is not None:
+                self.relocalizer.map = self.map
+            if self.kfdb is not None:
+                self.local_mapper.loop_closer.map = self.map

@@ -14,7 +14,8 @@ edges), built once:
     within 2e-3, points within 2e-2 (tests/test_global_ba_grouped.py:101-104:
     LM acceptance near its boundary can part two float32 solvers);
   * solve_global_ba routes E >= 4096 to the grouped solve and smaller maps
-    to the flat one, in the port alone; a stop_check raises;
+    to the flat one, in the port alone; a stop_check that never fires
+    leaves the solve bit for bit as it is, one that fires stops it;
   * ROADMAP.md C.9: a monocular initialization whose two-view map holds
     4096 edges or more runs its global BA (LocalMapper.global_ba, as
     frontend/tracking.py calls it) on the grouped path instead of raising.
@@ -141,8 +142,16 @@ def test_solve_global_ba_routes_by_edge_count(problem, monkeypatch):
 
 
 def test_solve_global_ba_stop_check_raises(problem):
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        TLM.solve_global_ba(problem[1], CAM, INV_S2.numpy(), stop_check=lambda: False)
+    """The name predates the interruptible solve, which raised here. A
+    stop_check that never fires leaves the solve as it is, bit for bit; one
+    that fires at the first poll stops it (tests/test_torch_async.py holds
+    the chunks against the JAX package)."""
+    pt = problem[1]
+    whole = TLM.solve_global_ba(pt, CAM, INV_S2.numpy(), n_iters=2)
+    polled = TLM.solve_global_ba(pt, CAM, INV_S2.numpy(), n_iters=2, stop_check=lambda: False)
+    np.testing.assert_array_equal(polled[0], whole[0])
+    np.testing.assert_array_equal(polled[1], whole[1])
+    assert TLM.solve_global_ba(pt, CAM, INV_S2.numpy(), stop_check=lambda: True) is None
 
 
 def _two_view_map(n_points, seed=0):

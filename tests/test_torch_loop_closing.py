@@ -25,8 +25,8 @@ vocabulary_from_jax. Each step starts both packages from one state:
 
 Then the port alone: the inline GlobalBARunner against LocalMapper.global_ba,
 its staged propagation and the recycled-slot guard (test_gba_runner.py's
-three cases), a global BA on a loop without a runner and the threaded
-modes raising (ROADMAP.md A.11c), and ROADMAP.md
+three cases), a global BA on a loop without a runner, the threaded modes'
+wiring (the threaded runner needs the map lock), and ROADMAP.md
 C.11: with vocabulary="online" the JAX System stores dense bags that its
 _detect_loop cannot unpack; the port stores them sparse.
 """
@@ -368,11 +368,27 @@ def test_global_ba_on_a_loop_needs_a_runner(drifted):
 
 
 def test_threaded_modes_raise():
+    """The name predates the threaded modes, which raised here. The threaded
+    runner needs the map lock; with it, and in System(async_mapping=True),
+    the runner, the mapping worker, the tracker and the loop closer share
+    one lock (tests/test_torch_async.py drives them)."""
+    import threading
+    from orb_slam2_detailed_comments_tpu_torch.backend.async_pipeline import AsyncLocalMapper
     cfg, ms = _port_loop(0)
-    with pytest.raises(NotImplementedError, match="A.11c"):
+    with pytest.raises(ValueError, match="map lock"):
         TR.GlobalBARunner(cfg, ms, async_mode=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        TSystem(cfg, TSensor.RGBD, async_mapping=True, device="cpu")
+    lock = threading.RLock()
+    runner = TR.GlobalBARunner(cfg, ms, async_mode=True, device="cpu", map_lock=lock)
+    assert runner.async_mode and runner.lock is lock and not runner.running()
+    slam = TSystem(cfg, TSensor.RGBD, async_mapping=True, device="cpu")
+    try:
+        assert isinstance(slam.local_mapper, AsyncLocalMapper) and slam.gba_runner.async_mode
+        assert slam.loop_closer.local_mapper is slam.local_mapper
+        assert slam.loop_closer.gba_runner is slam.gba_runner
+        assert slam.tracker.map_lock is slam.local_mapper.lock is slam.gba_runner.lock
+    finally:
+        slam.shutdown()
+    assert not slam.local_mapper._thread.is_alive()
 
 
 def test_online_vocabulary_keeps_sparse_bags(drifted):

@@ -25,7 +25,7 @@ REVISIT_FRAME's view.
   * System at its defaults builds loop closing (LoopCloser and the inline
     GlobalBARunner) and feeds it every keyframe; async mapping and an
     interruptible global BA (a stop_check, the asynchronous GBA runner's)
-    raise NotImplementedError (ROADMAP.md A.11c).
+    build and stop (tests/test_torch_async.py drives them).
 """
 import numpy as np
 import pytest
@@ -230,9 +230,12 @@ def test_system_without_loop_closing_only():
     """The name predates loop closing in the port. System(cfg, sensor) at its
     defaults, and with enable_loop_closing=True, builds a LoopCloser wired to
     the mapper and to the inline GlobalBARunner, for all three sensors (a
-    fixed scale but for mono); the asynchronous pipeline and an
-    interruptible global BA (a stop_check, the threaded runner's) raise
-    NotImplementedError naming ROADMAP.md A.11c."""
+    fixed scale but for mono). The asynchronous pipeline and an
+    interruptible global BA (a stop_check, the threaded runner's), which
+    raised here, now build and run: async_mapping=True wraps the mapper in
+    the worker and makes the runner threaded, and a stop_check that fires
+    at its first poll stops a 4096-edge solve."""
+    from orb_slam2_detailed_comments_tpu_torch.backend.async_pipeline import AsyncLocalMapper
     from orb_slam2_detailed_comments_tpu_torch.backend.gba_runner import GlobalBARunner
     from orb_slam2_detailed_comments_tpu_torch.backend.loop_closing import LoopCloser
     cfg = slam_config_from_jax(_config("rgbd"))
@@ -244,15 +247,17 @@ def test_system_without_loop_closing_only():
             assert isinstance(slam.gba_runner, GlobalBARunner) and lc.gba_runner is slam.gba_runner
             assert lc.local_mapper is slam.local_mapper and lc.run_global_ba
             assert lc.fix_scale == (sensor != "MONOCULAR") and lc.kfdb is slam.kfdb
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        TS.System(cfg, TT.Sensor.RGBD, device="cpu", async_mapping=True)
+    slam = TS.System(cfg, TT.Sensor.RGBD, device="cpu", async_mapping=True)
+    slam.shutdown()
+    assert isinstance(slam.local_mapper, AsyncLocalMapper) and slam.gba_runner.async_mode
+    assert slam.loop_closer is slam.local_mapper.loop_closer
     prob = TLM._problem("cpu", np.eye(4, dtype=np.float32)[None].repeat(2, 0), np.ones(2, bool),
                         np.ones(2, bool), np.zeros((1, 3), np.float32), np.ones(1, bool),
                         *(np.zeros(n, t) for n, t in ((4096, np.int32), (4096, np.int32))),
                         np.zeros((4096, 3), np.float32), np.zeros(4096, np.int32),
                         np.ones(4096, bool))
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        TLM.solve_global_ba(prob, cfg.camera, np.ones(8, np.float32), stop_check=lambda: False)
+    assert TLM.solve_global_ba(prob, cfg.camera, np.ones(8, np.float32),
+                               stop_check=lambda: True) is None
 
 
 def test_system_defaults_feed_the_loop_closer_every_keyframe():
