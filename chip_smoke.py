@@ -85,7 +85,8 @@ device time and its bound. Then it drives the port at full size:
           BA on) and then async: frames tracked, loops closed, exported ATE
           (limits at E2E_*), keyframes, map points, ms a frame (median, p90,
           max after the warm-up), the mapper's n_processed, n_ba_aborted
-          and n_ba_stale and the global-BA runner's counts.
+          and n_ba_stale, the frames with a keyframe waiting in the
+          worker's queue, and the global-BA runner's counts.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
@@ -1906,8 +1907,8 @@ def main() -> int:
         refine = functools.partial(optimize_sim3, S0, p1, p2, uv1, uv2, res.inliers,
                                    inv_sig2[o1], inv_sig2[o2], SIM3_K, fix_scale=fix, device=dev)
         opt, sync_o = count_syncs(refine)
-        _, ms_r = _frame_ms(ransac, n=5)
-        _, ms_o = _frame_ms(refine, n=5)
+        _, ms_r = _frame_ms(ransac, n=3)
+        _, ms_o = _frame_ms(refine, n=3)
         k_o, busy_o = _profile_frame(refine)
         S12 = opt.S12.double().cpu().numpy()
         s_est = float(np.cbrt(np.linalg.det(S12[:3, :3])))
@@ -1937,17 +1938,20 @@ def main() -> int:
         taken = pose_graph_backend(pgp, backend)
         solve = functools.partial(optimize_pose_graph, pgp, n_iters=n_iters, backend=backend,
                                   device=dev)
-        # one solve, timed and its host syncs counted
-        (S_opt, n_sync), ms_pg = _frame_ms(lambda: count_syncs(solve), n=1)
-        k_one, busy_one = _profile_frame(functools.partial(optimize_pose_graph, pgp, n_iters=1,
-                                                           backend=backend, device=dev))
+        # one GN iteration, first with its host syncs counted (the run that
+        # warms the case up), then profiled; then one whole solve, timed alone
+        one = functools.partial(optimize_pose_graph, pgp, n_iters=1, backend=backend, device=dev)
+        n_sync = count_syncs(one)[1]
+        k_one, busy_one = _profile_frame(one)
+        S_opt, ms_pg = _frame_ms(solve, n=1)
         S_opt = S_opt.cpu().numpy()
         t0_err = np.linalg.norm(S_est[:, :3, 3] - S_true[:, :3, 3], axis=1).mean()
         t1_err = np.linalg.norm(S_opt[:, :3, 3] - S_true[:, :3, 3], axis=1).mean()
         e0, e1 = edge_error(S_est, pr), edge_error(S_opt, pr)
         print(f"[16] pose graph K={Kn}, {pr['edge_i'].size} edges, backend {backend!r} -> "
-              f"{taken}, {n_iters} GN: {ms_pg:.3f} ms per solve, {n_sync} host syncs, "
-              f"{k_one} CUDA kernels in one GN iteration (device busy {_share(busy_one)}); "
+              f"{taken}, {n_iters} GN: {ms_pg:.3f} ms per solve (warm, no sync counter); one "
+              f"GN iteration: {n_sync} host syncs, {k_one} CUDA kernels, device busy "
+              f"{_share(busy_one)}; "
               f"mean edge error {e0:.4g} -> {e1:.4g} "
               f"({e0 / max(e1, 1e-30):.4g}x), mean translation error {t0_err:.4g} -> "
               f"{t1_err:.4g} m ({t0_err / max(t1_err, 1e-30):.4g}x)", flush=True)
@@ -2180,7 +2184,8 @@ def main() -> int:
               f"{r['mean_ms']:.3f} ({out['value']:.3f} fps); fused {r['fused_frames']}, staged "
               f"{r['staged_frames']}; mapper n_processed {r['n_processed']}, local BA aborted "
               f"{r['n_ba_aborted']}, stale {r['n_ba_stale']}, keyframes deferred "
-              f"{r['n_kf_deferred']}; global BA completed "
+              f"{r['n_kf_deferred']}, frames with a keyframe waiting {r['frames_kf_waiting']}; "
+              f"global BA completed "
               f"{r['gba_completed']}, aborted {r['gba_aborted']}; frames {r['wall_s']:.1f} s, "
               f"drain {r['drain_s']:.1f} s", flush=True)
         for kf, ms_, stage_ms in r["loop_calls_ms"]:

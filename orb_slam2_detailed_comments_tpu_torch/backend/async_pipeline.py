@@ -4,9 +4,10 @@ Counterpart of orb_slam2_detailed_comments_tpu/backend/async_pipeline.py.
 It keeps the reference's thread topology: tracking in the caller's thread,
 local mapping and loop closing on a worker that consumes a keyframe queue
 with back-pressure (reference: System.cc:133-152, LocalMapping.cc:176-190,
-mlNewKeyFrames and SetAcceptKeyFrames). The default pipeline is synchronous
-and deterministic; this one overlaps the tracking thread's frames with the
-worker's mapping.
+mlNewKeyFrames and SetAcceptKeyFrames): the tracker inserts keyframes
+freely only while the worker is idle, so it keeps to the worker's pace.
+The default pipeline is synchronous and deterministic; this one overlaps
+the tracking thread's frames with the worker's mapping.
 
 One reentrant map lock guards the map, coarser than the reference's ten
 mutexes. The worker holds it to prepare a keyframe (culling,
@@ -20,8 +21,15 @@ tracking thread extracts its frame outside the lock and re-poses its last
 frame when the map moved under it (frontend/tracking.py).
 
 The worker launches its CUDA work on a stream of its own. The keyframes
-reach it as host arrays in the map store, and what it hands back is host
-arrays too, so no device tensor crosses between the two threads.
+reach it as host arrays in the map store, what it hands back is host
+arrays too, and the vocabularies keep their words on the host (each call
+uploads them on its caller's stream), so no device tensor crosses between
+the two threads.
+
+The tracker resets the map inside a frame's call, under the map lock
+(LOST with a tiny map, a rejected monocular initialization). reset()
+then drops the queued keyframes and voids the one in process instead of
+waiting for the worker, which needs that lock for its next step.
 
 No failure ends the worker silently: its first exception is kept, the
 worker drops the keyframes queued after it, and the exception is raised on
@@ -43,14 +51,14 @@ WAIT_TIMEOUT_S = 600.0   # the longest wait for the worker to drain its queue
 class AsyncLocalMapper:
     """Wraps a LocalMapper and runs its keyframes on a worker thread."""
 
-    def __init__(self, mapper, map_lock, max_queue: int = 3):
+    def __init__(self, mapper, map_lock):
         self.mapper = mapper
         self.lock = map_lock
-        self.max_queue = max_queue
         self.queue: "queue.Queue" = queue.Queue()
         self._cv = threading.Condition()
         self._pending = 0          # keyframes queued or in process
         self._error: Optional[BaseException] = None
+        self._gen = 0              # moved by reset(): older queued keyframes are void
         # "another keyframe waits" (reference: InsertKeyFrame sets mbAbortBA,
         # LocalMapping.cc:954-957; CheckNewKeyFrames): a running local BA
         # skips its second phase, and the mapper defers the fusion, local BA
@@ -94,15 +102,22 @@ class AsyncLocalMapper:
             self._pending += 1
         with self.lock:
             self.mapper.pending.add(kf)
-        self.queue.put((kf, run_ba))
+            gen = self._gen
+        self.queue.put((kf, run_ba, gen))
 
     def global_ba(self, n_iters: int = 10):
         with self.lock:
             self.mapper.global_ba(n_iters)
 
     def reset(self):
-        self.wait_idle()
+        """Drop the queued keyframes and void the one in process, then reset
+        the mapper (reference: LocalMapping::ResetIfRequested clears its
+        queue). The tracker resets inside a frame's call, under the map
+        lock that the worker needs for its next step, so nothing here waits
+        for the worker: it skips whatever was queued before the reset."""
         with self.lock:
+            self._gen += 1
+            self.mapper.pending.clear()
             self.mapper.reset()
 
     # ---- the queue -----------------------------------------------------
@@ -112,9 +127,15 @@ class AsyncLocalMapper:
         return self.queue.qsize()
 
     def accept_keyframes(self) -> bool:
-        """The back-pressure signal (reference: LocalMapping::AcceptKeyFrames,
-        Tracking.cc:1703-1737)."""
-        return self.queue.qsize() < self.max_queue
+        """The back-pressure signal: the worker is idle, no keyframe queued
+        or in process (reference: LocalMapping::AcceptKeyFrames is false
+        while the mapper works on a keyframe, Tracking.cc:1703-1737). While
+        it is busy the tracker inserts only a keyframe it needs (c1a, c1c),
+        and stereo and RGB-D only while fewer than three wait
+        (Tracking.cc:1744-1760). The JAX package's "fewer than three
+        queued" kept the tracker at its synchronous keyframe rate and the
+        worker a keyframe or two behind it (ROADMAP.md C.18)."""
+        return self._pending == 0
 
     def check(self):
         """Raise the worker's first exception, if it failed."""
@@ -161,14 +182,18 @@ class AsyncLocalMapper:
                         self._pending -= 1
                         self._cv.notify_all()
 
-    def _process(self, kf: int, run_ba: bool):
+    def _process(self, kf: int, run_ba: bool, gen: int):
         m = self.mapper
         with self.lock:
+            if gen != self._gen:      # queued before a reset
+                return
             m.pending.discard(kf)
             built = m.prepare_keyframe(kf, run_ba=run_ba)
         # the local-BA solve reads only the snapshot: outside the lock
         result = m._solve_local_ba(built) if built is not None else None
         with self.lock:
+            if gen != self._gen:      # the map was reset during the solve
+                return
             if result is not None:
                 m._merge_local_ba(built, result)
             m.finish_keyframe(kf)

@@ -124,14 +124,15 @@ def build_global_ba_problem(mp: MapStore, device="cuda"):
 
 
 def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
-                    stop_check=None, chunk: int = 2):
+                    stop_check=None):
     """Solve a whole-map BAProblem, returning (cam_Tcw, points) as numpy.
     Below FLAT_GBA_MAX_EDGES edges the flat PCG solver takes it; from there
     on the grouped one (optim/global_ba_grouped.py), with the JAX package's
     schedule (50 CG iterations, damping 1e-5).
 
-    `stop_check`: a host callable polled before every `chunk` LM iterations
-    (the reference's mbStopGBA, LoopClosing.cc:699-712); when it fires the
+    `stop_check`: a host callable polled before every
+    optim.global_ba.STOP_POLL_EVERY LM iterations (the reference's
+    mbStopGBA, LoopClosing.cc:699-712); when it fires the
     solve returns None and the caller discards it. Both layouts run one LM
     schedule across the polls, so a solve it never stops equals the
     unpolled one bit for bit (the JAX package's flat path restarts the
@@ -139,10 +140,10 @@ def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
     inv_s2 = torch.as_tensor(np.asarray(inv_sigma2, np.float32)).to(prob.points.device)
     if int(prob.edge_cam.shape[0]) >= FLAT_GBA_MAX_EDGES:
         gp = group_global_problem(prob)
-        out = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5, stop_check, chunk)
+        out = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5, stop_check)
     else:
         out = global_bundle_adjustment(prob, camera, inv_s2, n_iters=n_iters,
-                                       stop_check=stop_check, chunk=chunk)
+                                       stop_check=stop_check)
     if out is None:
         return None
     return out[0].cpu().numpy(), out[1].cpu().numpy()

@@ -30,6 +30,10 @@ from ..geometry.se3 import exp_se3, se3_renormalize
 from .local_ba import BAProblem, _edge_terms, _inv3x3, _stereo_row_mask, edge_chi2
 from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
 
+# an interruptible solve polls its stop check before every this many LM
+# iterations of each phase (the JAX package's chunk of 2)
+STOP_POLL_EVERY = 2
+
 
 class Reducer(NamedTuple):
     """Per-camera and per-point sums of per-edge rows: (E, n) -> (C, n)
@@ -155,7 +159,7 @@ def _gba_iteration(cam_Tcw, points, prob: BAProblem, active, cam_params,
 
 def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
                              n_iters: int = 10, cg_iters: int = 50,
-                             damping: float = 1e-5, stop_check=None, chunk: int = 2):
+                             damping: float = 1e-5, stop_check=None):
     """LM iterations with PCG-Schur inner solves (the reference runs 10 or
     20 LM iterations for global BA, Optimizer.cc:80 / Tracking.cc:1089).
     Robust kernel active on the first half of the iterations only. A step
@@ -163,15 +167,15 @@ def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
     rejected one raises the damping (g2o's Levenberg rollback). None when
     `stop_check` stopped it (solve_lm)."""
     return solve_lm(prob, cam, inv_sigma2_levels, n_iters, cg_iters, damping,
-                    flat_reducer(prob), stop_check, chunk)
+                    flat_reducer(prob), stop_check)
 
 
 def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: int,
-             damping: float, red: Reducer, stop_check=None, chunk: int = 2):
+             damping: float, red: Reducer, stop_check=None):
     """The LM schedule of global_bundle_adjustment with its sums taken by
     `red`. Returns (cam_Tcw, points, edge_inlier over prob's edges).
 
-    `stop_check`, a host callable, is polled before every `chunk` LM
+    `stop_check`, a host callable, is polled before every STOP_POLL_EVERY LM
     iterations of each phase (the reference's mbStopGBA, polled between g2o
     iterations, LoopClosing.cc:699-712); when it returns True the solve
     returns None. The damping, the cost and the activation carry across
@@ -187,7 +191,7 @@ def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: in
         c_cur = _robust_cost(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
                              use_kernel)
         for i in range(n):
-            if stop_check is not None and i % chunk == 0 and stop_check():
+            if stop_check is not None and i % STOP_POLL_EVERY == 0 and stop_check():
                 return None
             cand_c, cand_p = _gba_iteration(
                 cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,

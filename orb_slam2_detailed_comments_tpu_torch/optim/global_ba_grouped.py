@@ -130,13 +130,12 @@ def layout_reducer(gp: GroupedGBA) -> Reducer:
 
 
 def solve_grouped(gp: GroupedGBA, cam, inv_sigma2_levels, n_iters: int = 10,
-                  cg_iters: int = 50, damping: float = 1e-5, stop_check=None,
-                  chunk: int = 2):
+                  cg_iters: int = 50, damping: float = 1e-5, stop_check=None):
     """The two-phase LM schedule on the grouped layout. Returns (cam_Tcw,
     points, inlier per storage slot), or None when `stop_check` stopped it
     (global_ba.solve_lm)."""
     return solve_lm(gp.prob, cam, inv_sigma2_levels, n_iters, cg_iters, damping,
-                    layout_reducer(gp), stop_check, chunk)
+                    layout_reducer(gp), stop_check)
 
 
 def global_bundle_adjustment_grouped(prob: BAProblem, cam, inv_sigma2_levels,

@@ -24,6 +24,12 @@ backend/async_pipeline.AsyncLocalMapper and System(async_mapping=True).
     solve is discarded once pose_epoch moves;
   * an exception on the mapping worker or on a global-BA thread is raised
     on the caller's thread, and a wait that runs out raises;
+  * the tracker's reset under the map lock voids the worker's queue
+    without waiting for it; the worker accepts keyframes only when idle,
+    and the tracker then inserts one only after max_frames frames, while
+    fewer than three wait, and never in mono; the wrapper passes the
+    mapper's surface through;
+  * tools/bench_e2e.py's ATE snapshots are copies;
   * System(async_mapping=True, device="cpu"), drained after each of the
     first DRAINED_FRAMES frames of test_torch_system.py's stereo sequence
     (keyframe-making frames, each mapped by the worker), keeps the sync System's
@@ -66,7 +72,7 @@ from test_global_ba_grouped import build_problem
 from test_loop_closing import build_drifted_loop
 
 WAIT_S = 60.0          # every join and wait in this file
-DRAINED_FRAMES = 8     # of test_torch_system.py's stereo sequence
+DRAINED_FRAMES = 5     # of test_torch_system.py's stereo sequence
 GBA_ITERS = 2          # the port's global BA on the drifted loop: ~1 s an iteration here
 INV_S2 = LBA.INV_S2
 
@@ -331,8 +337,10 @@ def test_local_ba_solve_runs_off_the_map_lock():
             time.sleep(0.005)
         with pytest.raises(TimeoutError):
             amapper.wait_idle(0.05)
+        assert not amapper.accept_keyframes()     # busy: the reference's AcceptKeyFrames
         release.set()
         amapper.wait_idle(WAIT_S)
+        assert amapper.accept_keyframes()
         assert np.percentile(waits, 95) < 0.05, waits
         assert amapper.n_processed == 1 and mapper.kf_counter == 1
     finally:
@@ -568,3 +576,154 @@ def test_mapper_defers_fusion_ba_and_culling_while_keyframes_wait(waiting):
     assert (built is None) == waiting and mapper.n_kf_deferred == int(waiting)
     for stage in ("fusion", "local_ba_build", "keyframe_culling"):
         assert counts[stage] == int(not waiting), stage
+
+
+@pytest.mark.parametrize("busy", [True, False])
+def test_tracker_reset_under_the_map_lock_voids_the_queue_without_waiting(busy):
+    """The tracker resets inside a frame's call, under the map lock (LOST
+    with a tiny map, a rejected monocular initialization). With one
+    keyframe in its off-lock solve and two queued, the reset must neither
+    wait for the worker, which needs that lock to go on, nor let it map
+    the old map's keyframes into the new one; with the worker idle, the
+    new map's first keyframe is mapped as any other."""
+
+    class Stub:
+        device = torch.device("cpu")
+        abort_ba_check = None
+
+        def __init__(self):
+            self.pending, self.prepared, self.finished, self.resets = set(), [], [], 0
+
+        def prepare_keyframe(self, kf, run_ba=True):
+            self.prepared.append(kf)
+            return kf
+
+        def _solve_local_ba(self, built):
+            in_solve.set()
+            release.wait(WAIT_S)
+            return built
+
+        def _merge_local_ba(self, built, result):
+            pass
+
+        def finish_keyframe(self, kf):
+            self.finished.append(kf)
+
+        def reset(self):
+            self.resets += 1
+
+    in_solve, release = threading.Event(), threading.Event()
+    if not busy:
+        release.set()
+    lock = threading.RLock()
+    stub = Stub()
+    amapper = AsyncLocalMapper(stub, lock)
+    cfg = slam_config_from_jax(SYS._config("stereo"))
+    trk = TT.Tracker(cfg, MapStore(cfg), TT.Sensor.STEREO, local_mapper=amapper, device="cpu")
+    trk.map_lock = lock
+    try:
+        if busy:
+            with lock:
+                amapper.on_new_keyframe(0)
+            assert in_solve.wait(WAIT_S)
+        with lock:                      # the tracker's frame: more keyframes, then a reset
+            if busy:
+                amapper.on_new_keyframe(1)
+                amapper.on_new_keyframe(2)
+            t0 = time.monotonic()
+            trk.reset()
+            assert time.monotonic() - t0 < 5.0
+            assert not stub.pending and stub.resets == 1
+            amapper.on_new_keyframe(0)  # the new map's first keyframe
+        release.set()
+        amapper.wait_idle(WAIT_S)
+    finally:
+        release.set()
+        amapper.shutdown(WAIT_S)
+    assert stub.prepared == ([0, 0] if busy else [0]) and stub.finished == [0]
+    assert amapper.n_processed == 1 and amapper._pending == 0
+
+
+def test_bench_e2e_ate_snapshot_is_a_copy():
+    """tools/bench_e2e.py reads the exported ATE around a loop correction
+    from copies taken inside the timed call and evaluated after the run: a
+    later move of the map must not reach a snapshot already taken."""
+    import importlib.util
+    import types
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "bench_e2e", Path(__file__).resolve().parents[1] / "tools" / "bench_e2e.py")
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
+    cfg = slam_config_from_jax(SYS._config("stereo"))
+    ms = MapStore(cfg)
+    poses = []
+    for i in range(6):                  # two keyframes, three frames on each
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.3 * i, 0.05 * i * i, 1.0 * i]
+        poses.append(T)
+    kfs = [ms.add_keyframe(_blank_frame(cfg, 3 * j, poses[3 * j])) for j in range(2)]
+    trajectory = [(i, 0.1 * i, poses[i] @ np.linalg.inv(poses[3 * (i // 3)]), kfs[i // 3], False)
+                  for i in range(6)]
+    slam = types.SimpleNamespace(map=ms, tracker=types.SimpleNamespace(trajectory=trajectory))
+    before = e2e.trajectory_snapshot(slam)
+    ms.kf_Tcw[kfs[1], 0, 3] += 0.5      # a correction moves the second keyframe
+    ate0, n0, _ = e2e.exported_errors(before, poses)
+    ate1, n1, _ = e2e.exported_errors(e2e.trajectory_snapshot(slam), poses)
+    assert n0 == n1 == 6 and ate0 < 1e-5 < 0.1 < ate1
+
+
+@pytest.mark.parametrize("sensor, idle, since_kf, queued, expected", [
+    ("stereo", True, 1, 0, True),       # idle worker: the ratio test alone decides (c1b)
+    ("stereo", False, 1, 0, False),     # busy: no c1b; the JAX rule ("< 3 queued") said yes
+    ("stereo", False, "max", 2, True),  # busy, max_frames since the last keyframe (c1a)
+    ("stereo", False, "max", 3, False),  # ... but three already wait (Tracking.cc:1744-1760)
+    ("mono", False, "max", 0, False),   # a busy mapper never takes a mono keyframe
+])
+def test_tracker_inserts_at_the_workers_pace(sensor, idle, since_kf, queued, expected):
+    """The tracker's side of the back-pressure (reference:
+    Tracking::NeedNewKeyFrame, Tracking.cc:1600-1760, with
+    AcceptKeyFrames false while the mapper works): a frame that tracks
+    half of its reference keyframe's points asks for a keyframe, which a
+    busy worker takes only after max_frames frames and while fewer than
+    three keyframes wait, and never in mono."""
+
+    class Mapper:
+        def accept_keyframes(self):
+            return idle
+
+        def queue_len(self):
+            return queued
+
+    cfg = slam_config_from_jax(SYS._config(sensor))
+    ms = MapStore(cfg)
+    sens = TT.Sensor.STEREO if sensor == "stereo" else TT.Sensor.MONOCULAR
+    trk = TT.Tracker(cfg, ms, sens, local_mapper=Mapper(), device="cpu")
+    kf = ms.add_keyframe(_blank_frame(cfg, 0, np.eye(4)))
+    ids = ms.add_map_points_batch(np.random.default_rng(0).normal(0, 1, (100, 3)).astype(np.float32),
+                                  kf, np.arange(100))
+    trk.last_kf_id, trk.last_kf_frame_id = kf, 0
+    fid = cfg.max_frames if since_kf == "max" else since_kf
+    frame = _blank_frame(cfg, fid, np.eye(4))
+    frame.ref_kf = kf
+    frame.mp[:50] = ids[:50]            # 50 of the reference's 100 points: the ratio test asks
+    assert trk._need_new_keyframe(frame) is expected
+
+
+def test_async_mapper_passes_the_mappers_surface_through():
+    """System.load_map and the loop closer set and read the mapper's map and
+    loop closer through the wrapper; the rest of the LocalMapper surface
+    (counters, _fuse) reads through to the wrapped mapper."""
+    cfg = slam_config_from_jax(SYS._config("stereo"))
+    mapper = TLM.LocalMapper(cfg, MapStore(cfg), monocular=False, device="cpu")
+    amapper = AsyncLocalMapper(mapper, threading.RLock())
+    try:
+        ms2, lc = MapStore(cfg), object()
+        amapper.map, amapper.loop_closer = ms2, lc
+        assert mapper.map is ms2 and amapper.map is ms2
+        assert mapper.loop_closer is lc and amapper.loop_closer is lc
+        mapper.n_ba_stale = 3
+        assert amapper.n_ba_stale == 3 and amapper.kf_counter == 0
+    finally:
+        amapper.shutdown(WAIT_S)
+    assert not amapper._thread.is_alive()

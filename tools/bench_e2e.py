@@ -27,9 +27,13 @@ prints one JSON object: examples/bench_e2e.py's fields, plus the largest
 frame time, the frames that saw a loop closed with their times, each
 loop-closing call of the LoopCloser (its keyframe, ms and stages) and the
 exported ATE just before and after its correction (the global BA's merge
-comes later), the exported trajectory's RMS error per 50-frame window, the mapper's
+comes later; read from copies taken in the call and computed after the
+run, so the call's time holds no evaluation), the exported trajectory's
+RMS error per 50-frame window, the mapper's
 n_processed (keyframes the mapping worker finished; in sync mode every
-keyframe, mapped inline), n_ba_aborted, n_ba_stale and n_kf_deferred, the global-BA
+keyframe, mapped inline), n_ba_aborted, n_ba_stale and n_kf_deferred, the
+frames after which a keyframe still waited in the worker's queue (how far
+the worker lags; 0 in sync mode), the global-BA
 runner's n_completed and n_aborted, the exported ATE, the drain's seconds
 and the card. It needs a CUDA card unless run_e2e is given device="cpu".
 """
@@ -44,6 +48,7 @@ import multiprocessing
 import os
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -131,14 +136,23 @@ def render_loop(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
 SEGMENT = 50          # frames per window of exported_errors' breakdown
 
 
-def exported_errors(slam, poses):
-    """The exported trajectory (every tracked frame from its corrected
-    reference keyframe) against the ground truth after one rigid alignment:
-    its ATE, its frame count and the RMS error of each SEGMENT-frame window
-    (where along the run the error sits)."""
+def trajectory_snapshot(slam):
+    """What the exported trajectory is made of, copied (a few hundred KB):
+    the tracker's log and the keyframe poses and spanning tree."""
+    ms = slam.map
+    return list(slam.tracker.trajectory), types.SimpleNamespace(
+        kf_valid=ms.kf_valid.copy(), parent=ms.parent.copy(), kf_Tcp=ms.kf_Tcp.copy(),
+        kf_Tcw=ms.kf_Tcw.copy())
+
+
+def exported_errors(snapshot, poses):
+    """The exported trajectory of a trajectory_snapshot (every tracked frame
+    from its corrected reference keyframe) against the ground truth after
+    one rigid alignment: its ATE, its frame count and the RMS error of each
+    SEGMENT-frame window (where along the run the error sits)."""
     from orb_slam2_detailed_comments_tpu_torch.evaluation.ate import align_umeyama
     from orb_slam2_detailed_comments_tpu_torch.io.trajectory import recover_frame_trajectory
-    rec = recover_frame_trajectory(slam.tracker.trajectory, slam.map)
+    rec = recover_frame_trajectory(*snapshot)
     f = np.asarray([i for i, _, _ in rec])
     est = np.asarray([np.linalg.inv(T)[:3, 3] for _, _, T in rec], np.float64)
     gt = np.asarray([np.linalg.inv(poses[i])[:3, 3] for i in f], np.float64)
@@ -186,13 +200,14 @@ def run_e2e(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
 
     lc = slam.loop_closer
     closing = []     # (keyframe, ms, {stage: ms}) of each loop-closing call
-    loop_ate = []    # (keyframe, exported ATE m before, after) each loop correction
+    corrections = []  # (keyframe, trajectory snapshots before and after) each loop correction
     on_kf, correct = lc.on_new_keyframe, lc._correct_loop
 
     def measured_correct(kf, *a):
-        before = exported_errors(slam, poses)[0]
+        # the snapshots are copies; their ATEs are computed after the run
+        before = trajectory_snapshot(slam)
         out = correct(kf, *a)
-        loop_ate.append((int(kf), round(before, 4), round(exported_errors(slam, poses)[0], 4)))
+        corrections.append((int(kf), before, trajectory_snapshot(slam)))
         return out
 
     def timed_on_kf(kf):
@@ -208,7 +223,8 @@ def run_e2e(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
     lc.on_new_keyframe = timed_on_kf      # both run on the thread that maps, under the map lock
     lc._correct_loop = measured_correct
     lat, loop_frames = [], []
-    n_ok = 0
+    n_ok = n_waiting = 0
+    queue_len = getattr(slam.local_mapper, "queue_len", lambda: 0)
     t_run = time.perf_counter()
     nxt = stage(frames[0])
     with torch.cuda.stream(track_stream) if on_card else contextlib.nullcontext():
@@ -226,6 +242,7 @@ def run_e2e(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
                 track_stream.synchronize()
             lat.append(time.perf_counter() - t0)
             n_ok += Tcw is not None and slam.tracking_state.name == "OK"
+            n_waiting += queue_len() > 0
             if lc.n_loops_closed > n_loops:
                 loop_frames.append((i, round(1e3 * lat[-1], 3)))
             if progress_every and i % progress_every == 0:
@@ -235,7 +252,9 @@ def run_e2e(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
     t_drain = time.perf_counter()
     slam.shutdown()
     drain = time.perf_counter() - t_drain
-    ate, n_exported, windows = exported_errors(slam, poses)
+    ate, n_exported, windows = exported_errors(trajectory_snapshot(slam), poses)
+    loop_ate = [(kf, round(exported_errors(b, poses)[0], 4), round(exported_errors(a, poses)[0], 4))
+                for kf, b, a in corrections]
 
     steady = np.asarray(lat[WARMUP:]) if len(lat) > WARMUP else np.asarray(lat)
     mapper = slam.local_mapper
@@ -269,6 +288,7 @@ def run_e2e(n_frames: int = 265, laps: float = 1.0, overlap: int = 31,
             "n_processed": int(mapper.n_processed if async_mapping else mapper.kf_counter),
             "n_ba_aborted": int(mapper.n_ba_aborted), "n_ba_stale": int(mapper.n_ba_stale),
             "n_kf_deferred": int(mapper.n_kf_deferred),
+            "frames_kf_waiting": int(n_waiting),
             "gba_completed": int(slam.gba_runner.n_completed),
             "gba_aborted": int(slam.gba_runner.n_aborted),
             "stage_ms": stages,
