@@ -1,4 +1,4 @@
-"""Trajectory accuracy metric (ATE).
+"""Trajectory accuracy metrics (ATE / RPE).
 
 The reference delegates accuracy evaluation to the external TUM benchmark
 scripts (reference: README.md:192-196 points at associate.py / the online
@@ -6,7 +6,7 @@ evaluation service); we build the standard metrics in so tests and bench
 runs are self-contained. ATE follows Sturm et al. (IROS 2012): similarity
 (or rigid) Umeyama alignment, then RMSE over translation residuals.
 
-A copy of the ATE part of orb_slam2_detailed_comments_tpu/evaluation/ate.py.
+A copy of orb_slam2_detailed_comments_tpu/evaluation/ate.py.
 """
 from __future__ import annotations
 
@@ -45,3 +45,14 @@ def ate_rmse(est_xyz: np.ndarray, gt_xyz: np.ndarray, with_scale: bool = True) -
     err = np.linalg.norm(aligned - gt_xyz, axis=-1)
     return float(np.sqrt((err ** 2).mean()))
 
+
+def rpe_rmse(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> float:
+    """Relative pose error (translation) over frame pairs at distance delta.
+    est_poses, gt_poses: (N, 4, 4) camera-to-world."""
+    errs = []
+    for i in range(len(est_poses) - delta):
+        de = np.linalg.inv(est_poses[i]) @ est_poses[i + delta]
+        dg = np.linalg.inv(gt_poses[i]) @ gt_poses[i + delta]
+        e = np.linalg.inv(dg) @ de
+        errs.append(np.linalg.norm(e[:3, 3]))
+    return float(np.sqrt(np.mean(np.square(errs)))) if errs else 0.0

@@ -275,6 +275,72 @@ def jax_loop_map_anchor():
                 gba=gbas, keyframes=int(ms.n_keyframes()))
 
 
+def jax_run_slam(mode, settings, seq, out, perturb=None):
+    """The JAX package's own examples/run_slam.py on one sequence (System at
+    the settings file's defaults, loop closing on), with the fused path on
+    in the exact modes. With `perturb` "noise<seed>" every image the driver
+    loads carries seeded uniform noise of +-chip_smoke.PERTURB_GREY grey
+    levels. Returns what the port's run_slam is held to: frames tracked (not
+    lost in the tracker's log), live keyframes and map points, the exported
+    frames and the driver's ground-truth ATE (None without ground truth)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    from orb_slam2_detailed_comments_tpu import system as JS
+    from orb_slam2_detailed_comments_tpu.evaluation.gt_eval import evaluate_against_gt
+    from orb_slam2_detailed_comments_tpu.io import datasets as JD
+    from orb_slam2_detailed_comments_tpu.io.trajectory import recover_frame_trajectory
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "run_slam.py"
+    spec = importlib.util.spec_from_file_location("jax_run_slam", path)
+    run_slam = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run_slam)
+    made = []
+    init, load = JS.System.__init__, JD.load_image_gray
+    grey = _chip_smoke().PERTURB_GREY
+    rng = np.random.default_rng(int(perturb[len("noise"):]) if perturb else 0)
+
+    def recording_init(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    def noisy_load(p):
+        img = load(p)
+        return (img + rng.uniform(-grey, grey, img.shape)).astype(np.float32)
+
+    argv = sys.argv
+    sys.argv = ["run_slam.py", mode, settings, seq, out]
+    JS.System.__init__ = recording_init
+    if perturb:
+        JD.load_image_gray = noisy_load
+    try:
+        with _jax_fused_exact():
+            run_slam.main()
+    finally:
+        sys.argv = argv
+        JS.System.__init__, JD.load_image_gray = init, load
+    slam = made[-1]
+    frames = recover_frame_trajectory(slam.tracker.trajectory, slam.map)
+    metrics = evaluate_against_gt(mode, seq, frames, mono=mode.endswith("mono"))
+    return dict(tracked=sum(1 for e in slam.tracker.trajectory if not e[4]),
+                keyframes=int(slam.map.n_keyframes()), map_points=int(slam.map.n_map_points()),
+                exported=len(frames), ate_m=None if metrics is None else metrics["ate_rmse_m"])
+
+
+def jax_run_slam_anchor(name, perturb=None):
+    """jax_run_slam on chip_smoke.py's [20] sequence `name` ("kitti-stereo",
+    "kitti-mono" or "tum-rgbd"), written to a temporary directory by
+    chip_smoke.write_dataset: the source of chip_smoke.py's
+    JAX_CPU_RUN_SLAM, and with `perturb` of the spread behind mono's ATE
+    limit. About 4-8 min and 3-4 GB a sequence on the CPU."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as root:
+        settings, seq, _ = _chip_smoke().write_dataset(name, root)
+        return jax_run_slam(name, settings, seq, str(Path(root) / "out"), perturb)
+
+
 def jax_gba_anchor():
     """The JAX package's grouped global BA (global_bundle_adjustment_grouped,
     its exact-float32 "gather" formulation: the "gemm" one-hot would take
@@ -399,12 +465,23 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/torch_parity.py loop [noise<seed>|clean ...]:
     #     jax_loop_anchor (the lap, or the lap under each perturbation)
     # JAX_PLATFORMS=cpu python tests/torch_parity.py loop_map: jax_loop_map_anchor
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py run_slam [NAME ...] [noise<seed> ...]:
+    #     jax_run_slam_anchor (chip_smoke.py [20]'s sequences, or each under
+    #     each perturbation)
     import sys
     from pathlib import Path
     import jax
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     jax.config.update("jax_platforms", "cpu")
     args = sys.argv[1:]
+    if args[:1] == ["run_slam"]:
+        perturbs = [a for a in args[1:] if a.startswith("noise")]
+        for name in [a for a in args[1:] if a not in perturbs] or ["kitti-stereo", "kitti-mono",
+                                                                  "tum-rgbd"]:
+            for p in perturbs or [None]:
+                print("run_slam", name, *([p] if p else []), jax_run_slam_anchor(name, p),
+                      f"jax {jax.__version__}", flush=True)
+        sys.exit(0)
     if args[:1] == ["loop"]:
         for p in args[1:] or [None]:
             print("loop", *([p] if p else []), jax_loop_anchor(p), f"jax {jax.__version__}",
