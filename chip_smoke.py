@@ -108,6 +108,25 @@ device time and its bound. Then it drives the port at full size:
           loaded back through the drivers' make_system, each image's words
           equal and each image first against itself; (e) FrameDrawer on
           (a)'s last frame, written as PNG and read back equal.
+  [21]    the entry points and the sharded global BA (parallel/): (a)
+          graft_entry.entry()'s fused mono frame (K1 and K2's ORB site once
+          a frame) against the JAX package's entry() (JAX_CPU_ENTRY); (b)
+          graft_entry.dryrun_multichip(1), a spawned rank over NCCL; (c) a
+          world of one rank over NCCL in this process: [14](b)'s problem
+          through distributed_global_ba_grouped, fused and through its
+          handle under a stop check that never fires, each bit-identical to
+          [14](b)'s solve_grouped, with ms a solve, CUDA kernels, busy share,
+          host syncs (asserted 0), peak memory and the robust cost against
+          JAX_CPU_GBA; "dense" on [14](a)'s stereo map against its flat
+          solve, and on DENSE_ROUTE's problem (DENSE_MAX_CAMS cameras at
+          bench_gba's density, a map the route sends to "dense") against
+          solve_grouped, with ms a solve, host syncs (asserted 0) and peak
+          memory; (d) examples/bench_scaling.py's rows at SCALING's ranks
+          and size over Gloo (one spawn, a process group a row), every
+          rank on this one card (times that measure no interconnect), and
+          its one-rank row on the points in another order (the float-order
+          yardstick), each within GBA_CAM_TOL and GBA_PT_TOL of the
+          one-rank solve and its robust cost within GBA_COST_RTOL.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; a path fails unless each extraction made one
@@ -115,8 +134,8 @@ fast_pyramid and one orb_desc launch (train_vocabulary: one extraction an
 image) and each stereo frame one stereo_sad launch (the other sensors
 none), and no path launched patch_gather, fast_score_nms_raw or
 fast_score_nms: those three are on no path and are
-driven once per [3] shape instead. [14], [16] and [18] run no image and launch
-no kernel (asserted). The line
+driven once per [3] shape instead. [14], [16], [18] and [21](c) run no
+image and launch no kernel (asserted). The line
 before the last is the per-kernel JSON (launches, errors, times, bounds);
 the last is {"ok": true, "device": {...}}. There is no CPU path: without a
 CUDA device the script fails. It imports neither jax nor the JAX package,
@@ -430,7 +449,10 @@ def _profile_frame(fn):
     """One call of fn under torch.profiler after a warm-up: the CUDA
     kernels it launched and the device's busy share, the union of the
     device activities' intervals over the host time of the call (the
-    profiler slows the host, so the share is a lower bound)."""
+    profiler slows the host, so the share is a lower bound). The device
+    activities are read from the profiler's raw events: building its
+    FunctionEvent list takes the host seconds for a call of tens of
+    thousands of kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -441,12 +463,12 @@ def _profile_frame(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    dev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    dev = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3) for e in events)
     if not dev:
         return None, None
-    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith(("Memcpy", "Memset")))
+    kernels = sum(1 for e in events if not e.name().startswith(("Memcpy", "Memset")))
     busy, (lo, hi) = 0.0, dev[0]
     for a, b in dev[1:]:
         if a > hi:
@@ -687,39 +709,89 @@ GBA_INV_S2 = np.array([1.0 / 1.2 ** (2 * i) for i in range(8)], np.float32)
 JAX_CPU_GBA = dict(edges=360448, cost_before=2032548352.0, cost_after=134502.96875)
 GBA_COST_RTOL = 0.01
 GBA_CAM_TOL, GBA_PT_TOL = 2e-3, 2e-2
+# ---- [21] the entry points and the sharded global BA --------------------------
+# The JAX package's __graft_entry__.entry() (the fused mono frame on
+# example_tracking_args' 640x480 noise image and 4096 random map points),
+# run on the CPU in the modes of JAX_CPU_TRACKER, jax 0.9.0, by
+# `JAX_PLATFORMS=cpu python tests/torch_parity.py entry` (jax_entry_anchor):
+# valid keypoints, matched map points, the two stages' inliers, visible map
+# points and the pose. [21](a) holds the counts exact and the pose within
+# POSE_TOL_M and POSE_TOL_DEG (random descriptors match one point: the pose
+# is that one point's GN step from the identity, as in JAX).
+JAX_CPU_ENTRY = dict(keypoints=1000, matched=1, n_in=1, n_in1=1, visible=3076, Tcw=[
+    [0.9998890161514282, 0.004791791085153818, 0.014107983559370041, 0.0016092658042907715],
+    [-0.004135446157306433, 0.9989241361618042, -0.046190086752176285, -0.005943243857473135],
+    [-0.014314137399196625, 0.04612661525607109, 0.9988330602645874, -0.002333652460947633],
+    [0.0, 0.0, 0.0, 1.0]])
+# [21](c): a problem the sharded route solves with "dense": DENSE_MAX_CAMS
+# cameras at examples/bench_gba.py's density (256 observations a camera,
+# 60,000 points a 1,408 cameras, so 21,818 points), bench_scaling's draws.
+# Held to solve_grouped at GBA_CAM_TOL, GBA_COST_RTOL and, for the points
+# the mapper would triangulate, GBA_PT_TOL: the drawn points include some
+# whose rays meet at under acos(TRIANGULATION_COS) = 1.15 deg, whose depth
+# the observations hardly fix, so two float32 solvers part there by cm
+# (PERF.md section 6); a map from the port's mapper holds no such
+# monocular point.
+DENSE_ROUTE = dict(n_cams=512, n_points=21818, obs_per_cam=256)
+# backend/local_mapping.py's monocular triangulation gate (the reference's
+# cosParallaxRays < 0.9998)
+TRIANGULATION_COS = 0.9998
+
+
+def max_parallax_deg(prob, cam_Tcw, points):
+    """Each point's largest angle (degrees) between two of its observing
+    rays, at the given cameras and points; 0 for a point seen once."""
+    import torch
+    R, t = cam_Tcw[:, :3, :3], cam_Tcw[:, :3, 3]
+    centers = -(R.transpose(1, 2) @ t[..., None])[..., 0]
+    e_cam, e_pt = prob.edge_cam.long(), prob.edge_point.long()
+    ray = points[e_pt] - centers[e_cam]
+    ray = ray / ray.norm(dim=1, keepdim=True)
+    n_pts = points.shape[0]
+    order = torch.argsort(e_pt, stable=True)
+    e_pt, ray = e_pt[order], ray[order]
+    deg = torch.bincount(e_pt, minlength=n_pts)
+    slot = torch.arange(e_pt.shape[0], device=e_pt.device) - (torch.cumsum(deg, 0) - deg)[e_pt]
+    rays = torch.zeros(n_pts, int(deg.max()), 3, device=points.device)
+    seen = torch.zeros(rays.shape[:2], dtype=torch.bool, device=points.device)
+    rays[e_pt, slot] = ray
+    seen[e_pt, slot] = True
+    cos = torch.einsum("pid,pjd->pij", rays, rays)
+    pair = seen[:, :, None] & seen[:, None, :] & ~torch.eye(seen.shape[1], dtype=torch.bool,
+                                                             device=seen.device)
+    cos = torch.where(pair, cos, torch.ones((), device=cos.device))
+    return torch.rad2deg(torch.acos(cos.amin(dim=(1, 2)).clamp(-1.0, 1.0)))
+# [21](d): examples/bench_scaling.py's rows at these ranks over Gloo, every
+# rank on the one card, and its permuted one-rank row. Its problem cut to
+# half the cameras and half the points (obs_per_cam kept: six observations
+# a point, as at full size), with solve_global_ba's schedule (10 LM x 50 CG;
+# at the driver's default 4 x 30 the LM stops far from its optimum, where
+# any change of float order, the point order on one rank as much as a
+# second rank, flips edges across the chi2 gate: PERF.md section 6), one
+# timed solve a row (its default 3). Each row within the JAX tests' grouped
+# tolerances (GBA_CAM_TOL, GBA_PT_TOL) of the one-rank solve, its robust
+# cost within GBA_COST_RTOL.
+SCALING = dict(ranks=(1, 2, 4), cams=704, points=30000, obs_per_cam=256, iters=10, cg=50,
+               reps=1, permuted=1)
 # [15]: the mono System at configs/KITTI04-12.yaml must initialize and track
 # this many of the rendered frames after the one it initialized on
 MONO_KITTI_TRACKED = 10
 # [16]: (keyframes, backend, GN iterations) as examples/bench_pose_graph.py
-# runs them (KITTI-00's ~1400 keyframes; 20 iterations for the banded solve)
-POSE_GRAPH_CASES = ((1408, "auto", 20), (256, "auto", 10), (1408, "cg", 10))
+# runs them (KITTI-00's ~1400 keyframes), but the banded solve at 10
+# iterations where the bench runs 20 (the script's time; the cg solve cuts
+# the errors 660x in 10), and each Sim3 step timed SIM3_TIMED times
+POSE_GRAPH_CASES = ((1408, "auto", 10), (256, "auto", 10), (1408, "cg", 10))
+SIM3_TIMED = 3
 
 
 def gba_bench_problem(n_cams, n_points, obs_per_cam, seed=0):
-    """A numpy copy of examples/bench_scaling.py::build_problem (the same
-    draws in the same order), as numpy arrays named as BAProblem's fields:
+    """examples/bench_scaling.py::build_problem's draws as numpy arrays named
+    as BAProblem's fields (the port's examples/bench_scaling.problem_arrays):
     cameras on a long noisy forward path, each observing obs_per_cam random
     points (monocular, 0.5 px of noise); the first two cameras fixed, the
     points perturbed by 5 cm."""
-    rng = np.random.default_rng(seed)
-    cams = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
-    cams[:, 0, 3] = -np.cumsum(rng.uniform(0.5, 1.5, n_cams)).astype(np.float32)
-    pts = rng.uniform([-50, -10, 5], [50, 10, 80], (n_points, 3)).astype(np.float32)
-    E = n_cams * obs_per_cam
-    e_cam = np.repeat(np.arange(n_cams, dtype=np.int32), obs_per_cam)
-    e_pt = rng.integers(0, n_points, E).astype(np.int32)
-    fx, fy, cx, cy = GBA_CAM["fx"], GBA_CAM["fy"], GBA_CAM["cx"], GBA_CAM["cy"]
-    pc = np.einsum("eij,ej->ei", cams[e_cam, :3, :3], pts[e_pt]) + cams[e_cam, :3, 3]
-    pc[:, 2] = np.abs(pc[:, 2]) + 1.0
-    u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, 0.5, E)
-    v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.5, E)
-    e_obs = np.stack([u, v, np.full(E, -1.0)], -1).astype(np.float32)
-    return dict(
-        cam_Tcw=cams, cam_free=np.asarray([False, False] + [True] * (n_cams - 2)),
-        cam_valid=np.ones(n_cams, bool),
-        points=pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
-        point_valid=np.ones(n_points, bool), edge_cam=e_cam, edge_point=e_pt, edge_obs=e_obs,
-        edge_octave=np.zeros(E, np.int32), edge_valid=np.ones(E, bool))
+    from orb_slam2_detailed_comments_tpu_torch.examples.bench_scaling import problem_arrays
+    return problem_arrays(n_cams, n_points, obs_per_cam, seed)
 
 
 def _small_sim3(xi):
@@ -1598,6 +1670,194 @@ def drive_datasets(device, zero_counts, check_path, path_launches):
             raise AssertionError(f"[20e] frame image: equal {same}, {n_marked} marked")
 
 
+def drive_parallel(dev, zero_counts, read_counts, check_path, path_launches, count_syncs,
+                   gba_ref=None, stereo_map=None):
+    """[21]: the port's entry points and its sharded global BA on the card.
+    (a) graft_entry.entry()'s fused mono frame against JAX_CPU_ENTRY; (b)
+    dryrun_multichip(1) over NCCL; (c) in this process, a world of one rank
+    over NCCL: examples/bench_gba.py's problem through
+    distributed_global_ba_grouped, fused and through the handle polled by a
+    check that never fires, each bit-identical to solve_grouped (gba_ref:
+    [14](b)'s (cam_Tcw, points), else solved here), "dense" on
+    `stereo_map` ([14](a)'s (prob, camera, inv_sigma2, flat solve)) against
+    its flat solve and on DENSE_ROUTE's problem against solve_grouped; (d)
+    examples/bench_scaling.py's rows (SCALING) over Gloo, every rank on
+    this card. (c) launches no kernel (asserted)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from orb_slam2_detailed_comments_tpu_torch.examples.bench_scaling import (
+        CAM, INV_S2, build_problem, scaling_rows)
+    from orb_slam2_detailed_comments_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu_torch.graft_entry import dryrun_multichip, entry
+    from orb_slam2_detailed_comments_tpu_torch.models.slam_step import unpack_host_blob
+    from orb_slam2_detailed_comments_tpu_torch.optim import global_ba as GBA
+    from orb_slam2_detailed_comments_tpu_torch.optim import global_ba_grouped as GBG
+    from orb_slam2_detailed_comments_tpu_torch.parallel import multihost
+    from orb_slam2_detailed_comments_tpu_torch.parallel.distributed_ba_grouped import (
+        DistributedGroupedGBA, distributed_global_ba_grouped, make_grouped_mesh)
+
+    def no_launch(name):
+        n = {k: v for k, v in read_counts().items() if v}
+        if n:
+            raise AssertionError(f"{name} launched kernels {n}")
+
+    # (a) entry(): one fused mono frame
+    fn, args = entry(device=dev)
+    zero_counts()
+    (blob, desc), ms = _frame_ms(lambda: fn(*args))
+    n = check_path("[21a] entry()", N_FRAMES, stereo=False)
+    for k in ("fast_pyramid", "orb_desc"):
+        path_launches[k] += n[k]
+    b, ts, vis = (t.cpu().numpy() for t in unpack_host_blob(blob, desc.shape[0]))
+    got = dict(keypoints=int(b[:, 7].sum()), matched=int(((b[:, 8] >= 0) & (b[:, 9] > 0)).sum()),
+               n_in=int(ts[16]), n_in1=int(ts[20]), visible=int(vis.sum()))
+    T_ref = np.asarray(JAX_CPU_ENTRY["Tcw"], np.float32)
+    T = ts[:16].reshape(4, 4)
+    d_t = float(np.linalg.norm(T[:3, 3] - T_ref[:3, 3]))
+    cos = (np.trace(T[:3, :3].T @ T_ref[:3, :3]) - 1) / 2
+    d_r = math.degrees(math.acos(min(1.0, max(-1.0, cos))))
+    print(f"[21a] entry() fused_mono_frame 640x480: {ms:.3f} ms/frame (median of {N_FRAMES}); "
+          f"{got} (JAX {dict((k, v) for k, v in JAX_CPU_ENTRY.items() if k != 'Tcw')}); pose "
+          f"off JAX's by {1e3 * d_t:.3f} mm, {d_r:.5f} deg", flush=True)
+    if any(got[k] != JAX_CPU_ENTRY[k] for k in got) or d_t > POSE_TOL_M or d_r > POSE_TOL_DEG:
+        raise AssertionError(f"[21a] entry() differs from the JAX package's: {got}, "
+                             f"{d_t} m, {d_r} deg")
+
+    # (b) the dry run, one rank over NCCL
+    zero_counts()
+    t0 = time.perf_counter()
+    deltas = dryrun_multichip(1, device=str(dev))
+    print(f"[21b] dryrun_multichip(1) over NCCL: {time.perf_counter() - t0:.1f} s (a spawned "
+          f"rank); largest camera and point distances from the single-device solve "
+          f"{deltas} (limit 1e-2 each)", flush=True)
+
+    # (c) a world of one over NCCL, in this process
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        multihost.initialize(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            backend = dist.get_backend()
+            prob = build_problem(**GBA_BENCH, device=dev)
+            gcam = PinholeCamera(**CAM)
+            inv_s2 = torch.from_numpy(INV_S2).to(dev)
+            if gba_ref is None:
+                gba_ref = GBG.solve_grouped(GBG.group_global_problem(prob), gcam, inv_s2,
+                                            10, 50, 1e-5)[:2]
+            mesh = make_grouped_mesh(dev)
+            # "gemm", as "auto" takes it above DENSE_MAX_CAMS cameras
+            fused = distributed_global_ba_grouped(prob, gcam, inv_s2, mesh, 10, 50,
+                                                  backend="gemm")
+            t0 = time.perf_counter()
+            h = DistributedGroupedGBA(prob, gcam, inv_s2, mesh, cg_iters=50, backend="gemm")
+            torch.cuda.synchronize()
+            ms_prep = 1e3 * (time.perf_counter() - t0)
+            polls = []
+
+            def never():
+                polls.append(1)
+                return False
+
+            run = functools.partial(h.solve, 10, never)
+            out, n_sync = count_syncs(run)
+            n_polls = len(polls)
+            _, ms_solve = _frame_ms(run, n=3)
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            n_kernels, busy = _profile_frame(run)
+            cam_params = (gcam.fx, gcam.fy, gcam.cx, gcam.cy, gcam.bf)
+            cost = float(GBA._robust_cost(out[0], out[1], prob, prob.edge_valid, cam_params,
+                                          inv_s2, True))
+            same_fused = all(torch.equal(a, r) for a, r in zip(fused, gba_ref))
+            same_handle = all(torch.equal(a, r) for a, r in zip(out, gba_ref))
+            ref = JAX_CPU_GBA
+            print(f"[21c] world of 1 rank over {backend!r}: bench_gba's problem "
+                  f"({int(prob.edge_cam.shape[0])} edges) through distributed_global_ba_grouped "
+                  f"({h.backend}, 10 LM x 50 CG): fused equal to solve_grouped {same_fused}; "
+                  f"the handle polled {n_polls} times by a check that never fires, equal "
+                  f"{same_handle}; {ms_solve:.3f} ms per solve (median of 3; [14](b)'s "
+                  f"single-device solve_grouped on an H100 80GB HBM3 at 700 W: 1735.101 "
+                  f"ms), {ms_prep:.3f} ms to shard and lay out, {n_kernels} CUDA kernels, device busy {_share(busy)}, "
+                  f"{n_sync} host syncs, peak device memory {peak_gb:.3f} GB; robust cost "
+                  f"{cost:.6g} (JAX on the CPU {ref['cost_after']:.6g}, "
+                  f"{100 * (cost / ref['cost_after'] - 1):+.3f}%)", flush=True)
+            if not (same_fused and same_handle) or n_sync or n_polls != 6:
+                raise AssertionError(f"[21c] sharded world of one: equal {same_fused}, "
+                                     f"{same_handle}; {n_sync} syncs, {n_polls} polls")
+            if not (math.isfinite(cost) and abs(cost / ref["cost_after"] - 1) <= GBA_COST_RTOL):
+                raise AssertionError(f"[21c] robust cost {cost}, JAX {ref['cost_after']}")
+            del prob, fused, h, out, gba_ref
+            if stereo_map is not None:
+                sprob, scam, sinv, sflat = stereo_map
+                dense = distributed_global_ba_grouped(sprob, scam, sinv, mesh, 10, 50,
+                                                      backend="dense")
+                d_cam, d_pt = _max_err(dense[0], sflat[0]), _max_err(dense[1], sflat[1])
+                print(f"[21c] dense on [14](a)'s stereo map ({int(sprob.cam_Tcw.shape[0])} "
+                      f"cameras, {int(sprob.edge_cam.shape[0])} edges) against its flat solve: "
+                      f"cameras {d_cam:.3e}, points {d_pt:.3e} (limits {GBA_CAM_TOL}, "
+                      f"{GBA_PT_TOL})", flush=True)
+                if d_cam > GBA_CAM_TOL or d_pt > GBA_PT_TOL:
+                    raise AssertionError("[21c] dense and flat global BA disagree")
+            # "dense" where the route takes it, against the grouped PCG solve
+            dprob = build_problem(**DENSE_ROUTE, device=dev)
+            dref = GBG.solve_grouped(GBG.group_global_problem(dprob), gcam, inv_s2, 10, 50,
+                                     1e-5)[:2]
+            hd = DistributedGroupedGBA(dprob, gcam, inv_s2, mesh, cg_iters=50)
+            run_d = functools.partial(hd.solve, 10)
+            torch.cuda.synchronize()
+            live_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            dense, n_sync = count_syncs(run_d)
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            _, ms_dense = _frame_ms(run_d, n=3)
+            # the points the mapper would triangulate (DENSE_ROUTE's comment)
+            par = max_parallax_deg(dprob, *dref)
+            tri = par >= math.degrees(math.acos(TRIANGULATION_COS))
+            d_cam, d_all = _max_err(dense[0], dref[0]), _max_err(dense[1], dref[1])
+            d_pt = _max_err(dense[1][tri], dref[1][tri])
+            d_low = float((dense[1] - dref[1]).abs().amax(1)[par >= 3.0].max())
+            costs = [float(GBA._robust_cost(c, x, dprob, dprob.edge_valid, cam_params, inv_s2,
+                                            True)) for c, x in (dense, dref)]
+            print(f"[21c] {hd.backend} at the route's size: {DENSE_ROUTE['n_cams']} cameras, "
+                  f"{DENSE_ROUTE['n_points']} points, {int(dprob.edge_cam.shape[0])} edges, 10 "
+                  f"LM: {ms_dense:.3f} ms per solve (median of 3), {n_sync} host syncs, peak "
+                  f"device memory {peak_gb:.3f} GB ({peak_gb - live_gb:.3f} GB above the "
+                  f"{live_gb:.3f} GB live before it); against solve_grouped (10 LM x 50 CG): "
+                  f"cameras {d_cam:.3e}, the {int(tri.sum())} points with rays at "
+                  f"{math.degrees(math.acos(TRIANGULATION_COS)):.3f} deg or more {d_pt:.3e} "
+                  f"(limits {GBA_CAM_TOL}, {GBA_PT_TOL}; at 3 deg or more {d_low:.3e}; all "
+                  f"{DENSE_ROUTE['n_points']} points {d_all:.3e}), robust cost "
+                  f"{costs[0]:.6g} against {costs[1]:.6g}", flush=True)
+            if hd.backend != "dense" or n_sync or d_cam > GBA_CAM_TOL or d_pt > GBA_PT_TOL \
+                    or not abs(costs[0] / costs[1] - 1) <= GBA_COST_RTOL:
+                raise AssertionError(f"[21c] {hd.backend} at the route's size: {n_sync} syncs, "
+                                     f"{d_cam}, {d_pt}, costs {costs}")
+            del dprob, dref, hd, dense
+        finally:
+            dist.destroy_process_group()
+    no_launch("[21c] the sharded global BA")
+
+    # (d) the scaling driver, every rank on this card over Gloo
+    t0 = time.perf_counter()
+    rows, _ = scaling_rows(device=str(dev), backend="gloo", **SCALING)
+    secs = time.perf_counter() - t0
+    far = [r for r in rows if r["cam_delta"] > GBA_CAM_TOL or r["point_delta"] > GBA_PT_TOL
+           or abs(r["cost_vs_first"]) > GBA_COST_RTOL]
+    print(f"[21d] examples/bench_scaling.py over Gloo, all ranks on this one card (their times "
+          f"measure no interconnect): {SCALING['cams']} cameras, {SCALING['points']} points, "
+          f"{SCALING['cams'] * SCALING['obs_per_cam']} edges, {SCALING['iters']} LM x "
+          f"{SCALING['cg']} CG, {SCALING['reps']} timed solve(s) a row, {secs:.1f} s; each "
+          f"row against the first: cameras within {GBA_CAM_TOL}, points within {GBA_PT_TOL}, "
+          f"robust cost within {100 * GBA_COST_RTOL:g}%; the last row is one rank on the "
+          f"points in another order (what float order alone moves)", flush=True)
+    for r in rows:
+        print(f"[21d] {json.dumps(r)}", flush=True)
+    if far:
+        raise AssertionError(f"[21d] rows off the one-rank solve: {far}")
+
+
 def _load_tool(name):
     """A script of tools/ as a module (tools is not a package; on the path,
     the processes it spawns can import it too)."""
@@ -2132,6 +2392,7 @@ def main() -> int:
           f"{float((grouped[2] == flat[2]).float().mean()):.4f}", flush=True)
     if not same_route or d_cam > GBA_CAM_TOL or d_pt > GBA_PT_TOL:
         raise AssertionError("[14] grouped and flat global BA disagree on the stereo map")
+    stereo_map = (prob, slam.config.camera, inv_s2_map, flat)     # for [21](c)
 
     # (b) examples/bench_gba.py's problem
     d = gba_bench_problem(**GBA_BENCH, seed=0)
@@ -2186,6 +2447,7 @@ def main() -> int:
                              f"routed {len(calls)}")
     if not (math.isfinite(cost) and abs(cost / ref["cost_after"] - 1) <= GBA_COST_RTOL):
         raise AssertionError(f"[14] robust cost {cost}, JAX {ref['cost_after']}")
+    gba_ref = first[:2]                                            # for [21](c)
 
     # ---- [15] System mono at configs/KITTI04-12.yaml (ROADMAP.md C.9) ----
     clock()
@@ -2251,8 +2513,8 @@ def main() -> int:
         refine = functools.partial(optimize_sim3, S0, p1, p2, uv1, uv2, res.inliers,
                                    inv_sig2[o1], inv_sig2[o2], SIM3_K, fix_scale=fix, device=dev)
         opt, sync_o = count_syncs(refine)
-        _, ms_r = _frame_ms(ransac, n=3)
-        _, ms_o = _frame_ms(refine, n=3)
+        _, ms_r = _frame_ms(ransac, n=SIM3_TIMED)
+        _, ms_o = _frame_ms(refine, n=SIM3_TIMED)
         k_o, busy_o = _profile_frame(refine)
         S12 = opt.S12.double().cpu().numpy()
         s_est = float(np.cbrt(np.linalg.det(S12[:3, :3])))
@@ -2563,6 +2825,10 @@ def main() -> int:
     # ---- [20] the dataset drivers on files ----
     clock()
     drive_datasets(str(dev), zero_counts, check_path, path_launches)
+    # ---- [21] the entry points and the sharded global BA ----
+    clock()
+    drive_parallel(dev, zero_counts, read_counts, check_path, path_launches, count_syncs,
+                   gba_ref, stereo_map)
     print(f"    main-path launches {path_launches}; whole run {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -25,7 +25,8 @@ numpy, as in the JAX package. Each stage is timed by `timer`
 (utils/timing.StageTimer), the local-BA solve per bucket. Only the JAX
 package's default path is ported: the device keyframe store, the three
 local-BA buckets and, for whole-map BA, the flat solver and, from
-FLAT_GBA_MAX_EDGES edges on, the grouped one; `_fuse`, one keyframe at a
+FLAT_GBA_MAX_EDGES edges on, the grouped one, sharded over the ranks of a
+torch.distributed deployment (parallel/); `_fuse`, one keyframe at a
 time, serves loop fusion.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import List, Set
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..geometry.triangulate import triangulate_dlt_np
 from ..interop import desc_to_torch
@@ -128,7 +130,14 @@ def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
     """Solve a whole-map BAProblem, returning (cam_Tcw, points) as numpy.
     Below FLAT_GBA_MAX_EDGES edges the flat PCG solver takes it; from there
     on the grouped one (optim/global_ba_grouped.py), with the JAX package's
-    schedule (50 CG iterations, damping 1e-5).
+    schedule (50 CG iterations, damping 1e-5). In a torch.distributed
+    deployment of more than one rank (every rank calls this, as every JAX
+    process does) the grouped solve is sharded over the ranks
+    (parallel/distributed_ba_grouped.py; JAX's `len(jax.devices()) > 1
+    and E >= 4096`, a rank as the device), "dense" up to DENSE_MAX_CAMS
+    cameras; it keeps the single-device route's 50 CG iterations where
+    JAX's sharded route runs 40, so that a world of n solves the problem
+    a world of one does.
 
     `stop_check`: a host callable polled before every
     optim.global_ba.STOP_POLL_EVERY LM iterations (the reference's
@@ -136,9 +145,17 @@ def solve_global_ba(prob: BAProblem, camera, inv_sigma2, n_iters: int = 10,
     solve returns None and the caller discards it. Both layouts run one LM
     schedule across the polls, so a solve it never stops equals the
     unpolled one bit for bit (the JAX package's flat path restarts the
-    schedule per chunk; ROADMAP.md C records the divergence)."""
-    inv_s2 = torch.as_tensor(np.asarray(inv_sigma2, np.float32)).to(prob.points.device)
-    if int(prob.edge_cam.shape[0]) >= FLAT_GBA_MAX_EDGES:
+    schedule per chunk; ROADMAP.md C records the divergence). Sharded,
+    the ranks agree on each poll, so all of them stop at the same one."""
+    dev = prob.points.device
+    inv_s2 = torch.as_tensor(np.asarray(inv_sigma2, np.float32)).to(dev)
+    E = int(prob.edge_cam.shape[0])
+    if E >= FLAT_GBA_MAX_EDGES and dist.is_initialized() and dist.get_world_size() > 1:
+        from ..parallel.distributed_ba_grouped import (distributed_global_ba_grouped,
+                                                       make_grouped_mesh)
+        out = distributed_global_ba_grouped(prob, camera, inv_s2, make_grouped_mesh(dev),
+                                            n_iters, 50, 1e-5, stop_check=stop_check)
+    elif E >= FLAT_GBA_MAX_EDGES:
         gp = group_global_problem(prob)
         out = solve_grouped(gp, camera, inv_s2, n_iters, 50, 1e-5, stop_check)
     else:

@@ -77,6 +77,7 @@ class Tracker:
         self.state = TrackingState.NO_IMAGES_YET
         self.timer = StageTimer()
         self.map_lock = contextlib.nullcontext()  # an async caller sets a real lock
+        self.gba_runner = None    # a GlobalBARunner whose running solve a reset stops
         # the last logged frame's id, reference keyframe, that keyframe's pose
         # (resolved through culled ones) and the map's pose_epoch at its log
         self._last_ref = None
@@ -447,7 +448,15 @@ class Tracker:
                                   self.map.pose_epoch)
 
     def reset(self):
-        """reference: Tracking::Reset (Tracking.cc:2506-2563)."""
+        """reference: Tracking::Reset (Tracking.cc:2506-2563). A global BA
+        still solving is stopped first, without a join: the tracker's
+        auto-resets run under the map lock, which a merging solve waits
+        for, and the stop voids its merge by generation
+        (GlobalBARunner.request_stop). The keyframe database and the loop
+        closer keep their entries, as in the JAX package (ROADMAP.md,
+        known fault 9); System.reset clears them."""
+        if self.gba_runner is not None:
+            self.gba_runner.request_stop(join=False)
         self.map.__init__(self.config)
         self.state = TrackingState.NOT_INITIALIZED
         self._lost_streak = 0

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..geometry.camera import PinholeCamera
+from ..interop import desc_to_torch
 from ..ops import matching as M
 from ..ops.orb import Keypoints, extract_orb, extract_orb_batch
 from ..ops.stereo import depth_to_stereo, stereo_match
@@ -336,3 +337,29 @@ def make_stereo_inputs(seed=0, device="cuda"):
     mp = _map_tensors(device, pos, dists, kp, idx)
     Tcw = torch.eye(4, dtype=torch.float32, device=device)
     return (img_t, torch.from_numpy(img_r).to(device), Tcw, *mp), orb, cam
+
+
+def example_tracking_args(orb: OrbConfig = None, cam: PinholeCamera = None,
+                          height=480, width=640, seed=0, device="cuda"):
+    """The JAX package's example_tracking_args, the same numpy draws from
+    the seed: a uniform-noise image, the identity pose and a LOCAL_MP_CAP-
+    point local map (positions, unit normals, the 0.3x / 3x distance band,
+    random descriptors as their int32 bit-view, all valid). Returns (img,
+    Tcw, pos, normal, min_dist, max_dist, desc, valid, orb, cam)."""
+    orb = orb or OrbConfig()
+    cam = cam or PinholeCamera(fx=517.3, fy=516.5, cx=318.6, cy=255.3,
+                               width=width, height=height)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    img = t(rng.uniform(0, 255, (height, width)))
+    Tcw = torch.eye(4, dtype=torch.float32, device=device)
+    P = LOCAL_MP_CAP
+    pos = t(rng.uniform([-3, -3, 2], [3, 3, 9], (P, 3)))
+    dists = torch.linalg.norm(pos, dim=-1)
+    normal = pos / dists[:, None]
+    desc = desc_to_torch(rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint32), device)
+    return (img, Tcw, pos, normal, 0.3 * dists, 3.0 * dists, desc,
+            torch.ones(P, dtype=torch.bool, device=device), orb, cam)

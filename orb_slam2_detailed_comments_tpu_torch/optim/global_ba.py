@@ -35,11 +35,20 @@ from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weig
 STOP_POLL_EVERY = 2
 
 
+def _same(x):
+    return x
+
+
 class Reducer(NamedTuple):
     """Per-camera and per-point sums of per-edge rows: (E, n) -> (C, n)
-    and (E, n) -> (P, n), each in a fixed order."""
+    and (E, n) -> (P, n), each in a fixed order. `ranks` sums a value
+    every rank holds a part of (the robust cost, a dense step's Schur
+    complement) over the ranks of a sharded solve
+    (parallel/distributed_ba*.py), whose `cam` and, edge-sharded, `point`
+    sum over the ranks too; one device leaves it the identity."""
     cam: Callable
     point: Callable
+    ranks: Callable = _same
 
 
 def flat_reducer(prob: BAProblem) -> Reducer:
@@ -170,10 +179,47 @@ def global_bundle_adjustment(prob: BAProblem, cam, inv_sigma2_levels,
                     flat_reducer(prob), stop_check)
 
 
+def lm_cost(prob: BAProblem, cam_Tcw, points, active, cam_params, inv_sigma2_levels,
+            use_kernel: bool, red: Reducer):
+    """The objective LM compares, summed over the ranks (red.ranks), so
+    every rank takes the same accept / reject branch."""
+    return red.ranks(_robust_cost(cam_Tcw, points, prob, active, cam_params,
+                                  inv_sigma2_levels, use_kernel))
+
+
+def lm_steps(prob: BAProblem, cam_Tcw, points, active, use_kernel: bool, lam, c_cur, n: int,
+             cam_params, inv_sigma2_levels, cg_iters: int, red: Reducer, step=_gba_iteration):
+    """n LM iterations from the carried damping `lam` and cost `c_cur`:
+    a step is kept only if it does not raise the robust objective; a
+    rejected one raises the damping (g2o's Levenberg rollback). Returns
+    (cam_Tcw, points, lam, c_cur)."""
+    for _ in range(n):
+        cand_c, cand_p = step(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
+                              use_kernel, lam, cg_iters, red)
+        c_new = lm_cost(prob, cand_c, cand_p, active, cam_params, inv_sigma2_levels,
+                        use_kernel, red)
+        accept = c_new <= c_cur
+        cam_Tcw = torch.where(accept, cand_c, cam_Tcw)
+        points = torch.where(accept, cand_p, points)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 8.0, max=1e2))
+        c_cur = torch.where(accept, c_new, c_cur)
+    return cam_Tcw, points, lam, c_cur
+
+
+def inlier_edges(prob: BAProblem, cam_Tcw, points, cam_params, inv_sigma2_levels):
+    """Valid edges in front of their camera with chi2 under the reference's
+    thresholds (5.991 mono, 7.815 stereo)."""
+    chi2, behind = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
+    chi2_th = torch.where(prob.edge_obs[:, 2] >= 0.0, CHI2_STEREO, CHI2_MONO)
+    return prob.edge_valid & (chi2 <= chi2_th) & ~behind
+
+
 def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: int,
-             damping: float, red: Reducer, stop_check=None):
+             damping: float, red: Reducer, stop_check=None, step=_gba_iteration):
     """The LM schedule of global_bundle_adjustment with its sums taken by
-    `red`. Returns (cam_Tcw, points, edge_inlier over prob's edges).
+    `red` and its GN steps by `step` (the PCG one, or a layout's dense
+    one). Returns (cam_Tcw, points, edge_inlier over prob's edges).
 
     `stop_check`, a host callable, is polled before every STOP_POLL_EVERY LM
     iterations of each phase (the reference's mbStopGBA, polled between g2o
@@ -183,27 +229,17 @@ def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: in
     for op; a poll reads no device value."""
     dev = prob.points.device
     cam_params = (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf)
-    is_stereo = prob.edge_obs[:, 2] >= 0.0
-    chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
 
     def lm_phase(n, cam_Tcw, points, active, use_kernel):
         lam = torch.full((), damping, dtype=torch.float32, device=dev)   # no host copy
-        c_cur = _robust_cost(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
-                             use_kernel)
-        for i in range(n):
-            if stop_check is not None and i % STOP_POLL_EVERY == 0 and stop_check():
+        c_cur = lm_cost(prob, cam_Tcw, points, active, cam_params, inv_sigma2_levels,
+                        use_kernel, red)
+        for i in range(0, n, STOP_POLL_EVERY):
+            if stop_check is not None and stop_check():
                 return None
-            cand_c, cand_p = _gba_iteration(
-                cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels,
-                use_kernel, lam, cg_iters, red)
-            c_new = _robust_cost(cand_c, cand_p, prob, active, cam_params,
-                                 inv_sigma2_levels, use_kernel)
-            accept = c_new <= c_cur
-            cam_Tcw = torch.where(accept, cand_c, cam_Tcw)
-            points = torch.where(accept, cand_p, points)
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
-                              torch.clamp(lam * 8.0, max=1e2))
-            c_cur = torch.where(accept, c_new, c_cur)
+            cam_Tcw, points, lam, c_cur = lm_steps(
+                prob, cam_Tcw, points, active, use_kernel, lam, c_cur,
+                min(STOP_POLL_EVERY, n - i), cam_params, inv_sigma2_levels, cg_iters, red, step)
         return cam_Tcw, points
 
     n_pre = max(n_iters // 2, 1)
@@ -215,14 +251,9 @@ def solve_lm(prob: BAProblem, cam, inv_sigma2_levels, n_iters: int, cg_iters: in
     # chi2-gate outliers before dropping the robust kernel (the reference
     # erases outlier edges between its two optimize() calls,
     # Optimizer.cc:916-935)
-    chi2_mid, behind_mid = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
-    active = prob.edge_valid & (chi2_mid <= chi2_th) & ~behind_mid
+    active = inlier_edges(prob, cam_Tcw, points, cam_params, inv_sigma2_levels)
     out = lm_phase(n_iters - n_pre, cam_Tcw, points, active, False)
     if out is None:
         return None
-    cam_Tcw, points = out
-
-    cam_Tcw = se3_renormalize(cam_Tcw)
-    chi2, behind = edge_chi2(cam_Tcw, points, prob, cam_params, inv_sigma2_levels)
-    inlier = prob.edge_valid & (chi2 <= chi2_th) & ~behind
-    return cam_Tcw, points, inlier
+    cam_Tcw = se3_renormalize(out[0])
+    return cam_Tcw, out[1], inlier_edges(prob, cam_Tcw, out[1], cam_params, inv_sigma2_levels)

@@ -20,11 +20,15 @@ per solve on the host takes them, in a fixed order and without atomics:
     summed the same way and added to those (distinct) cameras.
 
 No edge is dropped: the layout covers every valid edge once. The solve
-is the JAX package's "gather" formulation in exact float32. Its "gemm"
-(bfloat16 one-hot limbs on the MXU) and "dense" (materialized Schur
-complement) formulations compute the same function for the TPU and are
-not carried over (ROADMAP.md). The layout is host numpy; after it a solve
-makes no host sync (global_ba.solve_lm).
+is the JAX package's "gather" formulation in exact float32; its "gemm"
+(bfloat16 one-hot limbs on the MXU) computes the same function for the
+TPU and is not carried over, and "gemm" names this formulation in the
+port. Its "dense" step (`dense_step`: the Schur complement S = Hcc -
+A Hpp^-1 A^T materialized as a (6C, 6C) matrix and solved by LU) is, for
+the sharded solve (parallel/distributed_ba_grouped.py), which takes it
+at C <= DENSE_MAX_CAMS: one cross-rank sum of S a GN step instead of one
+a CG matvec. The layout is host numpy; after it a solve makes no host
+sync (global_ba.solve_lm).
 """
 from __future__ import annotations
 
@@ -33,9 +37,14 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from .global_ba import Reducer, solve_lm
+from ..geometry.se3 import exp_se3
+from .global_ba import Reducer, _assemble, solve_lm
 from .local_ba import BAProblem
-from .segments import ragged_grid
+from .segments import grid_dims, ragged_grid
+
+# the sharded solve takes the dense step up to this many cameras (the JAX
+# package's DENSE_MAX_CAMS: (6C)^2 x 3P products stay cheap)
+DENSE_MAX_CAMS = 512
 
 
 class GroupedGBA(NamedTuple):
@@ -53,10 +62,29 @@ class GroupedGBA(NamedTuple):
     edge_slot: torch.Tensor   # (E,) int64 slot of each valid edge, 0 otherwise
 
 
-def group_global_problem(prob: BAProblem, kp_cap: int = 32, kc_cap: int = 1024) -> GroupedGBA:
+def layout_dims(prob: BAProblem, kp_cap: int = 32, kc_cap: int = 1024):
+    """(Kp, Ks, Us, Kc, Kcs, Uc): the shape group_global_problem gives
+    `prob`'s layout, from its degrees alone. The point grid (Kp, P) and
+    spill (Ks, Us), the camera grid (Kc, C) and spill (Kcs, Uc)."""
+    val = prob.edge_valid.cpu().numpy()
+    deg_p = np.bincount(prob.edge_point.cpu().numpy()[val], minlength=int(prob.points.shape[0]))
+    deg_c = np.bincount(prob.edge_cam.cpu().numpy()[val], minlength=int(prob.cam_Tcw.shape[0]))
+    return grid_dims(deg_p, kp_cap) + grid_dims(deg_c, kc_cap)
+
+
+def group_global_problem(prob: BAProblem, kp_cap: int = 32, kc_cap: int = 1024,
+                         dims=None) -> GroupedGBA:
     """Build the layout on the host (numpy), in the JAX package's orders:
     stable sorts by point and by camera over edge ids. Kp = min(largest
-    point degree, kp_cap), Kc = min(largest camera degree, kc_cap)."""
+    point degree, kp_cap), Kc = min(largest camera degree, kc_cap).
+
+    `dims` (Kp, Ks, Us, Kc, Kcs, Uc) pins the grids' depths and the least
+    spill shapes (the JAX package's force_kp, force_kc, min_sp and min_sc),
+    so that the shards of a sharded problem share one shape; with dims =
+    layout_dims(prob) the layout is the one built without them."""
+    kp = kcs = (0, (0, 0))
+    if dims is not None:
+        kp, kcs = (dims[0], tuple(dims[1:3])), (dims[3], tuple(dims[4:6]))
     dev = prob.points.device
     e_pt = prob.edge_point.cpu().numpy().astype(np.int64)
     e_cam = prob.edge_cam.cpu().numpy().astype(np.int64)
@@ -71,7 +99,7 @@ def group_global_problem(prob: BAProblem, kp_cap: int = 32, kc_cap: int = 1024) 
     # ---- point-major storage ----
     ve = eids[e_val]
     order = ve[np.argsort(e_pt[ve], kind="stable")]
-    g_sel, g_val, s_pts, s_sel, s_val = ragged_grid(order, e_pt[order], P, kp_cap)
+    g_sel, g_val, s_pts, s_sel, s_val = ragged_grid(order, e_pt[order], P, kp_cap, *kp)
     Kp, Ks, Us = g_sel.shape[0], s_sel.shape[0], s_pts.size
     slot_edge = np.concatenate([np.where(g_val, g_sel, -1).ravel(),
                                 np.where(s_val, s_sel, -1).ravel()])
@@ -86,7 +114,7 @@ def group_global_problem(prob: BAProblem, kp_cap: int = 32, kc_cap: int = 1024) 
     # ---- camera-major selection over the stored edges ----
     stored = eids[e_val]
     corder = stored[np.argsort(e_cam[stored], kind="stable")]
-    c_sel, c_val, cs_cam, cs_sel, cs_val = ragged_grid(corder, e_cam[corder], C, kc_cap)
+    c_sel, c_val, cs_cam, cs_sel, cs_val = ragged_grid(corder, e_cam[corder], C, kc_cap, *kcs)
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
@@ -127,6 +155,51 @@ def layout_reducer(gp: GroupedGBA) -> Reducer:
         return out
 
     return Reducer(cam=cam, point=point)
+
+
+def dense_step(gp: GroupedGBA):
+    """The JAX package's _gba_dense_iteration as a solve_lm step on this
+    layout: the coupling A (P, C, 6, 3) of every point with every camera,
+    summed from the storage slots (a point meets each camera once in a row
+    of the grids, so each row is one indexed add with distinct indices,
+    in a fixed order), S = Hcc - A Hpp^-1 A^T as a dense (6C, 6C) matrix and
+    one LU solve (solve_ex: no host sync) in place of the PCG. `red.ranks`
+    sums S and the gradient's correction over ranks once a step."""
+    Kp, P, Ks, Us = gp.shape
+    n_grid = Kp * P
+    rows = [(slice(k * P, (k + 1) * P), None) for k in range(Kp)]
+    rows += [(slice(n_grid + k * Us, n_grid + (k + 1) * Us), gp.s_point) for k in range(Ks)]
+
+    def step(cam_Tcw, points, prob, active, cam_params, inv_sigma2_levels, use_kernel,
+             damping, cg_iters, red: Reducer):
+        C = cam_Tcw.shape[0]
+        dev = points.device
+        Hcc_d, Hpp_inv, Y, g_c, g_p = _assemble(cam_Tcw, points, prob, active, cam_params,
+                                                inv_sigma2_levels, use_kernel, damping, red)
+        free = (prob.cam_free & prob.cam_valid).float()
+        cam_of = prob.edge_cam.long()
+        A = torch.zeros(P * C, 18, device=dev)
+        for sl, pt in rows:
+            key = (torch.arange(P, device=dev) if pt is None else pt) * C + cam_of[sl]
+            A[key] = A[key] + Y[sl].reshape(-1, 18)
+        A3 = A.reshape(P, C * 6, 3)
+        A2 = A3.permute(1, 0, 2).reshape(C * 6, P * 3)                 # (6C, 3P)
+        G2 = torch.bmm(A3, Hpp_inv).permute(1, 0, 2).reshape(C * 6, P * 3)  # A Hpp^-1
+        S = -red.ranks(G2 @ A2.T)
+        hg = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
+        corr = red.ranks(A2 @ hg.reshape(-1))
+        idx = torch.arange(C, device=dev)
+        S4 = S.reshape(C, 6, C, 6)
+        S4[idx, :, idx, :] += Hcc_d
+        m = free.repeat_interleave(6)
+        S = S * m[:, None] * m[None, :] + torch.diag(1.0 - m)
+        rhs = -(g_c - corr.reshape(C, 6)) * free[:, None]
+        dc = torch.linalg.solve_ex(S, rhs.reshape(-1)).result.reshape(C, 6) * free[:, None]
+        atdc = (A2.T @ dc.reshape(-1)).reshape(P, 3)
+        dp = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + atdc)
+        return exp_se3(dc) @ cam_Tcw, points + torch.where(prob.point_valid[:, None], dp, 0.0)
+
+    return step
 
 
 def solve_grouped(gp: GroupedGBA, cam, inv_sigma2_levels, n_iters: int = 10,

@@ -12,22 +12,38 @@ import numpy as np
 import torch
 
 
-def ragged_grid(order: np.ndarray, keys: np.ndarray, n_keys: int, cap: int):
+def grid_dims(deg: np.ndarray, cap: int):
+    """(D, Ds, U) of ragged_grid's layout for keys of these degrees: the
+    grid's depth, and the depth and width of its spill."""
+    D = int(min(max(int(deg.max()) if deg.size else 1, 1), cap))
+    over = deg[deg > D] - D
+    return D, int(over.max()) if over.size else 0, int(over.size)
+
+
+def ragged_grid(order: np.ndarray, keys: np.ndarray, n_keys: int, cap: int,
+                depth: int = 0, min_spill=(0, 0)):
     """Lay `order` (items sorted stably by `keys`, one key per item) out
     key-major: (D, n_keys) items, D = min(largest key degree, cap), and the
     items past D of each key in a (Ds, U) spill over the U keys that have
     them. Returns (sel, valid, spill_keys, spill_sel, spill_valid); invalid
-    entries hold item 0."""
+    entries hold item 0.
+
+    `depth` sets D and `min_spill` the least (Ds, U), so that layouts of
+    different items can share one shape: a padding spill column is all
+    invalid and takes a key of no other column, so the spill's keys stay
+    distinct."""
     ar = np.arange(n_keys)
     start = np.searchsorted(keys, ar, side="left")
     deg = np.searchsorted(keys, ar, side="right") - start
-    D = int(min(max(int(deg.max()) if order.size else 1, 1), cap))
+    D = depth or grid_dims(deg, cap)[0]
     src = order if order.size else np.zeros(1, np.int64)
     d = np.arange(D)[:, None]
     valid = d < np.minimum(deg, D)[None, :]
     sel = np.where(valid, src[np.minimum(start[None, :] + d, src.size - 1)], 0)
     u = np.nonzero(deg > D)[0]
-    Ds = int((deg[u] - D).max()) if u.size else 0
+    if u.size < min_spill[1]:
+        u = np.concatenate([u, np.setdiff1d(ar, u)[:min_spill[1] - u.size]])
+    Ds = max(int((deg[u] - D).max()) if u.size else 0, min_spill[0])
     ds = np.arange(Ds)[:, None]
     s_valid = ds < (deg[u] - D)[None, :]
     s_sel = np.where(s_valid, src[np.minimum(start[u][None, :] + D + ds, src.size - 1)], 0)

@@ -126,6 +126,7 @@ class System:
         self.tracker = Tracker(config, self.map, sensor, local_mapper=self.local_mapper,
                                relocalizer=self.relocalizer, device=device)
         self.tracker.map_lock = self._map_lock
+        self.tracker.gba_runner = self.gba_runner
 
     # ------------------------------------------------------------------
 

@@ -644,6 +644,99 @@ def test_tracker_reset_under_the_map_lock_voids_the_queue_without_waiting(busy):
     assert amapper.n_processed == 1 and amapper._pending == 0
 
 
+def _fire_auto_reset(trk, cfg):
+    """The tracker's LOST auto-reset (reference: Tracking.cc:744-753): LOST
+    for a second with at most five live keyframes, then one more frame that
+    does not relocalize. Call under the map lock, as a frame does."""
+    ms = trk.map
+    ms.kf_valid[ms.keyframe_ids()[5:]] = False
+    trk.state = TT.TrackingState.LOST
+    trk._lost_streak = int(cfg.fps)
+    assert trk._track(_blank_frame(cfg, 1000, np.eye(4))) is None
+    assert trk.state == TT.TrackingState.NOT_INITIALIZED and ms.n_keyframes() == 0
+
+
+def test_auto_reset_stops_a_running_global_ba():
+    """ROADMAP.md C.19: the tracker's auto-reset, under the map lock, must
+    stop a global BA still solving on the runner's thread without waiting
+    for it, so that nothing of the old map's solve merges into the new map."""
+    cfg, ms = _port_loop(21, jitter_m=0.02)
+    lock = threading.RLock()
+    runner = _async_runner(cfg, ms, lock)
+    trk = TT.Tracker(cfg, ms, TT.Sensor.STEREO, device="cpu")
+    trk.map_lock, trk.gba_runner = lock, runner
+    in_solve, release = threading.Event(), threading.Event()
+    runner._chunk_hook = lambda: (in_solve.set(), release.wait(WAIT_S))
+    runner.launch(n_iters=GBA_ITERS)
+    try:
+        assert in_solve.wait(WAIT_S)
+        with lock:                      # the tracker's frame
+            t0 = time.monotonic()
+            _fire_auto_reset(trk, cfg)
+            assert time.monotonic() - t0 < 5.0
+            # the new map's first keyframes reuse the old ids 0 and 1
+            for i in range(2):
+                ms.add_keyframe(_blank_frame(cfg, 1001 + i, np.eye(4)))
+            poses = ms.kf_Tcw.copy()
+        release.set()
+        runner.wait(WAIT_S)
+    finally:
+        release.set()
+        runner.wait(WAIT_S)
+    assert not runner.running()
+    assert runner.n_aborted == 1 and runner.n_completed == 0
+    np.testing.assert_array_equal(ms.kf_Tcw, poses)
+
+
+def test_auto_reset_keeps_the_keyframe_database_and_the_loop_closer():
+    """ROADMAP.md known fault 9, copied from the JAX package for parity (its
+    Tracker.reset, frontend/tracking.py:458-473, is the port's): the
+    reference's Tracking::Reset also clears the keyframe database and
+    resets loop closing; the tracker's auto-reset leaves both, so the old
+    map's keyframe ids stay in the database's inverted index and in the
+    loop closer's bags and consistency groups until a new keyframe of the
+    same id replaces them. System.reset clears them."""
+    cfg = slam_config_from_jax(SYS._config("stereo"))
+    slam = TS.System(cfg, TT.Sensor.STEREO, device="cpu")
+    bow = np.zeros(slam.voc.n_words, np.float32)
+    bow[[3, 7, 11]] = 1.0
+    lc = slam.loop_closer
+    for k in range(2):
+        slam.kfdb.add(k, bow)
+        lc.kf_bow[k] = (np.nonzero(bow)[0], bow[bow > 0])
+    lc.consistent_groups.append(({0, 1}, 1))
+    _fire_auto_reset(slam.tracker, cfg)
+    assert slam.kfdb.active[:2].all() and len(slam.kfdb.inv[3]) == 2
+    assert set(lc.kf_bow) == {0, 1} and lc.consistent_groups
+    slam.reset()
+    assert not slam.kfdb.active.any() and not lc.kf_bow and not lc.consistent_groups
+
+
+def test_keyframe_points_follow_numpys_sort_over_tied_depths():
+    """ROADMAP.md C.23 and known fault 10, copied from the JAX package for
+    parity (frontend/tracking.py:981-985 there): a stereo or RGB-D
+    keyframe spawns points at its unmatched keypoints nearest first, at
+    least 100, in the order of numpy's default argsort over their depths.
+    RGB-D depths are quantized (16-bit PNG), so they tie, and that sort is
+    not stable: which tied keypoints make the 100 depends on the numpy
+    build (its SIMD sort), so one sequence maps differently on two
+    machines. The kept set is numpy's, and only ties decide it."""
+    cfg = slam_config_from_jax(SYS._config("rgbd"))
+    trk = TT.Tracker(cfg, MapStore(cfg), TT.Sensor.RGBD, device="cpu")
+    rng = np.random.default_rng(5)
+    f = _blank_frame(cfg, 0, np.eye(4))
+    n = 300
+    f.valid[:n] = True
+    f.xy[:n] = rng.uniform([10, 10], [310, 230], (n, 2)).astype(np.float32)
+    f.depth[:n] = (8.0 + 0.0002 * rng.integers(0, 4, n)).astype(np.float32)  # beyond th_depth
+    trk._create_new_keyframe(f)
+    made = np.nonzero(f.mp >= 0)[0]
+    cand = np.arange(n)
+    assert sorted(made.tolist()) == sorted(cand[np.argsort(f.depth[cand])][:100].tolist())
+    d100 = np.sort(f.depth[:n])[99]
+    assert (f.depth[made] <= d100).all() and (f.depth[np.setdiff1d(cand, made)] >= d100).all()
+
+
 def test_bench_e2e_ate_snapshot_is_a_copy():
     """tools/bench_e2e.py reads the exported ATE around a loop correction
     from copies taken inside the timed call and evaluated after the run: a

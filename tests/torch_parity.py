@@ -372,6 +372,25 @@ def jax_gba_anchor():
     return dict(edges=int(d["edge_cam"].size), cost_before=c0, cost_after=cost(cams, pts))
 
 
+def jax_entry_anchor():
+    """The JAX package's __graft_entry__.entry() (the fused monocular frame
+    on example_tracking_args' noise image and random local map) run once in
+    the exact modes: the valid keypoints, the matched map points (a slot
+    and an inlier), the two stages' inlier counts, the visible map points
+    and the pose, as numpy. The source of chip_smoke.py's JAX_CPU_ENTRY and
+    of tests/test_torch_graft_entry.py's reference. About 40 s."""
+    import numpy as np
+    import __graft_entry__ as G
+    from orb_slam2_detailed_comments_tpu.models.slam_step import unpack_host_blob
+    with jax_exact_modes():
+        fn, args = G.entry()
+        blob, desc = fn(*args)
+    b, ts, vis = (np.asarray(a) for a in unpack_host_blob(np.asarray(blob), desc.shape[0]))
+    return dict(keypoints=int(b[:, 7].sum()), matched=int(((b[:, 8] >= 0) & (b[:, 9] > 0)).sum()),
+                n_in=int(ts[16]), n_in1=int(ts[20]), visible=int(vis.sum()),
+                Tcw=ts[:16].reshape(4, 4).tolist())
+
+
 def _xla_levels():
     """Make the port's predict_scale_level take its log from XLA on the CPU
     (the JAX package's), to show which differences its ties make
@@ -462,6 +481,7 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/torch_parity.py replay SENSOR [FIRST LAST]
     #     [xla-levels]: replay_local_mapper
     # JAX_PLATFORMS=cpu python tests/torch_parity.py gba: jax_gba_anchor
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py entry: jax_entry_anchor
     # JAX_PLATFORMS=cpu python tests/torch_parity.py loop [noise<seed>|clean ...]:
     #     jax_loop_anchor (the lap, or the lap under each perturbation)
     # JAX_PLATFORMS=cpu python tests/torch_parity.py loop_map: jax_loop_map_anchor
@@ -489,6 +509,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if args[:1] == ["loop_map"]:
         print("loop_map", jax_loop_map_anchor(), f"jax {jax.__version__}", flush=True)
+        sys.exit(0)
+    if args[:1] == ["entry"]:
+        print("entry", jax_entry_anchor(), f"jax {jax.__version__}", flush=True)
         sys.exit(0)
     if args[:1] == ["gba"]:
         print(jax_gba_anchor(), f"jax {jax.__version__}", flush=True)
