@@ -140,3 +140,46 @@ def sequence_parser(doc: str, *positional: str) -> argparse.ArgumentParser:
         ap.add_argument(name)
     add_device_argument(ap)
     return ap
+
+
+def load_synthetic_world():
+    """tests/synthetic_world.py of this checkout, loaded by path (tests is
+    not a package on every machine): the rendered worlds and trajectories
+    of the benchmark drivers."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    if "synthetic_world" in sys.modules:
+        return sys.modules["synthetic_world"]
+    path = Path(__file__).resolve().parents[2] / "tests" / "synthetic_world.py"
+    spec = importlib.util.spec_from_file_location("synthetic_world", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.modules["synthetic_world"] = mod
+    return mod
+
+
+def timed_ms(fn, device, reps: int = 5) -> float:
+    """Median ms of fn() over `reps` calls after one warm-up call: on a
+    CUDA device each call between two CUDA events on the current stream,
+    read after a synchronize; on the CPU the host clock."""
+    import statistics
+    import torch
+    fn()
+    if torch.device(device).type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)

@@ -31,8 +31,8 @@ Options:
       fallback: without a CUDA device, pass --device cpu).
   --viz DIR [--viz-period S]  stream annotated frame + map PNGs and a
       status.json to DIR during the run — the headless equivalent of the
-      reference's live Pangolin viewer (Viewer.cc:76-236). The map image
-      needs matplotlib.
+      reference's live Pangolin viewer (Viewer.cc:76-236). Both images
+      are drawn in numpy (no plotting library).
   --localization              run in localization-only mode (frozen map).
 """
 from __future__ import annotations
@@ -100,11 +100,6 @@ def run(argv=None) -> dict:
 
     args = parse_args(argv)
     device = check_device(args.device)
-    if args.viz:
-        try:
-            import matplotlib  # noqa: F401
-        except ImportError:
-            raise SystemExit("--viz renders the map with matplotlib, which is not installed")
     ds, sensor = open_dataset(args.mode, args.settings, args.sequence)
     slam = System.from_settings_yaml(args.settings, sensor, device=device)
     if args.localization:

@@ -109,10 +109,20 @@ class DeviceLocalMap:
         self.last_rows_uploaded = int(rows.size)
         if rows.size == 0:
             return
+        if rows.size > UPDATE_BUCKETS[-1]:
+            self.full_uploads += 1
+        self._upload(rows, want_packed, want_desc, want_valid)
+        self._shadow_packed = want_packed
+        self._shadow_desc = want_desc
+        self._shadow_valid = want_valid
+
+    def _upload(self, rows: np.ndarray, want_packed: np.ndarray, want_desc: np.ndarray,
+                want_valid: np.ndarray) -> None:
+        """Write the changed `rows` of the wanted pad to the device: a
+        bucketed delta, or the whole pad past the largest bucket."""
         dev = self.device
         if rows.size > UPDATE_BUCKETS[-1]:
             # rare (loop correction / GBA rewrote the map): full re-upload
-            self.full_uploads += 1
             self.d_packed.copy_(torch.from_numpy(want_packed))
             self.d_desc.copy_(desc_to_torch(want_desc, "cpu"))
             self.d_valid.copy_(torch.from_numpy(want_valid))
@@ -130,9 +140,6 @@ class DeviceLocalMap:
             self._buf_packed.index_copy_(0, r, torch.from_numpy(up_packed).to(dev))
             self._buf_desc.index_copy_(0, r, desc_to_torch(up_desc, dev))
             self._buf_valid.index_copy_(0, r, torch.from_numpy(up_valid).to(dev))
-        self._shadow_packed = want_packed
-        self._shadow_desc = want_desc
-        self._shadow_valid = want_valid
 
     def invalidate(self) -> None:
         """Force a full re-upload on the next refresh (map reset)."""

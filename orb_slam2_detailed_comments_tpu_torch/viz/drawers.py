@@ -9,8 +9,13 @@ keyframe frusta, covisibility graph, spanning tree and loop edges.
 
 A copy of orb_slam2_detailed_comments_tpu/viz/drawers.py. FrameDrawer
 takes this package's FrameData as the tracker leaves it, pulling any field
-still on the device first; MapDrawer and TrajectoryPlotter import
-matplotlib when called (the frame half needs only numpy).
+still on the device first. MapDrawer and TrajectoryPlotter draw in numpy
+and write through io/png.py, with no plotting library (the JAX package
+draws them with matplotlib, which a card's host may lack): the same
+content, a different picture. MapDrawer projects the map orthographically
+in matplotlib's 3-D view (elev, azim), each axis first scaled to a unit
+cube as set_box_aspect([1, 1, 1]) does; TrajectoryPlotter plots x against
+z at equal scale.
 """
 from __future__ import annotations
 
@@ -83,70 +88,167 @@ class FrameDrawer:
                 rgb[y + d, x] = color
 
 
+MAP_SIZE = (800, 640)          # MapDrawer's picture, width x height (px)
+PLOT_SIZE = (640, 480)         # TrajectoryPlotter's
+MARGIN = 24                    # px kept clear around the drawing
+POINT_RGB = (110, 110, 110)
+KF_RGB = (0, 0, 255)
+COVIS_RGB = (205, 205, 205)
+TREE_RGB = (0, 160, 0)
+LOOP_RGB = (230, 0, 0)
+EST_RGB = (0, 0, 255)
+GT_RGB = (0, 0, 0)
+
+
+def _fit(uv: np.ndarray, size):
+    """The map from 2-D drawing coordinates to pixels that fits `uv`'s
+    bounding box into a picture of `size` (w, h) less MARGIN, at one scale
+    for both axes, centred, y up."""
+    w, h = size
+    lo = uv.min(axis=0) if len(uv) else np.zeros(2)
+    hi = uv.max(axis=0) if len(uv) else np.ones(2)
+    span = np.maximum(hi - lo, 1e-9)
+    scale = min((w - 2 * MARGIN) / span[0], (h - 2 * MARGIN) / span[1])
+    mid = (lo + hi) / 2
+
+    def to_px(p):
+        p = np.asarray(p, np.float64).reshape(-1, 2)
+        x = w / 2 + scale * (p[:, 0] - mid[0])
+        y = h / 2 - scale * (p[:, 1] - mid[1])
+        return np.stack([x, y], -1)
+    return to_px
+
+
+def _dots(rgb: np.ndarray, px: np.ndarray, color, r: int = 0) -> None:
+    """Squares of half-width r at the pixels px (n, 2), clipped."""
+    h, w = rgb.shape[:2]
+    xy = np.rint(px).astype(np.int64)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            x, y = xy[:, 0] + dx, xy[:, 1] + dy
+            ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+            rgb[y[ok], x[ok]] = color
+
+
+def _line(rgb: np.ndarray, a, b, color, dash: int = 0) -> None:
+    """The segment from pixel a to pixel b, one sample a pixel step;
+    with dash > 0, `dash` pixels drawn then `dash` skipped."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    n = int(np.ceil(np.abs(b - a).max())) + 1
+    t = np.linspace(0.0, 1.0, n)[:, None]
+    pts = a + t * (b - a)
+    if dash:
+        pts = pts[(np.arange(n) // dash) % 2 == 0]
+    _dots(rgb, pts, color)
+
+
+def _polyline(rgb: np.ndarray, px: np.ndarray, color, dash: int = 0) -> None:
+    for a, b in zip(px[:-1], px[1:]):
+        _line(rgb, a, b, color, dash)
+
+
+def _finish(rgb: np.ndarray, path: Optional[str]):
+    """Write rgb as a PNG at path and return the path, or return rgb."""
+    if path:
+        from ..io.png import write_png
+        write_png(path, rgb)
+        return path
+    return rgb
+
+
 class MapDrawer:
     """Render the sparse map + keyframe graph to a PNG
-    (reference: MapDrawer::DrawMapPoints/DrawKeyFrames, MapDrawer.cc:57-290)."""
+    (reference: MapDrawer::DrawMapPoints/DrawKeyFrames, MapDrawer.cc:57-290):
+    map points grey, keyframe centres as blue squares, covisibility edges
+    light grey, the spanning tree green, loop edges red."""
 
     def __init__(self, map_store: MapStore):
         self.map = map_store
 
+    def projector(self, elev: float = -75.0, azim: float = -90.0):
+        """The map from world points (n, 3) to pixels (n, 2) of the picture
+        render draws: each axis scaled by the span of the map points and
+        keyframe centres to a unit cube, projected on the screen's right
+        and up directions of matplotlib's 3-D view at elevation `elev` and
+        azimuth `azim` (degrees), fitted into the picture."""
+        ms = self.map
+        kfs = ms.keyframe_ids()
+        xyz = np.concatenate([ms.mp_pos[ms.mp_valid].reshape(-1, 3),
+                              np.asarray([ms.kf_camera_center(k) for k in kfs]).reshape(-1, 3)])
+        lo = xyz.min(axis=0) if len(xyz) else np.zeros(3)
+        span = np.maximum(xyz.max(axis=0) - lo, 1e-9) if len(xyz) else np.ones(3)
+        e, a = np.radians(elev), np.radians(azim)
+        axes = np.array([[-np.sin(a), np.cos(a), 0.0],
+                         [-np.sin(e) * np.cos(a), -np.sin(e) * np.sin(a), np.cos(e)]])
+
+        def screen(p):
+            return ((np.asarray(p, np.float64).reshape(-1, 3) - lo) / span) @ axes.T
+        to_px = _fit(screen(xyz), MAP_SIZE)
+        return lambda p: to_px(screen(p))
+
     def render(self, path: Optional[str] = None, show_graph: bool = True,
                elev: float = -75.0, azim: float = -90.0):
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
+        """The map as an (H, W, 3) uint8 picture, or written as a PNG at
+        `path` (then the path is returned)."""
         ms = self.map
-        fig = plt.figure(figsize=(10, 8))
-        ax = fig.add_subplot(111, projection="3d")
+        w, h = MAP_SIZE
+        rgb = np.full((h, w, 3), 255, np.uint8)
+        proj = self.projector(elev, azim)
+        kfs = ms.keyframe_ids()
+        centers = (proj(np.stack([ms.kf_camera_center(k) for k in kfs])) if kfs.size
+                   else np.zeros((0, 2)))
         pts = ms.mp_pos[ms.mp_valid]
         if len(pts):
-            ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2], s=0.5, c="k", alpha=0.4)
-        kfs = ms.keyframe_ids()
-        centers = np.stack([ms.kf_camera_center(k) for k in kfs]) if kfs.size else np.zeros((0, 3))
-        if len(centers):
-            ax.scatter(centers[:, 0], centers[:, 1], centers[:, 2], s=12, c="b", marker="s")
+            _dots(rgb, proj(pts), POINT_RGB)
         if show_graph and kfs.size:
             idx_of = {int(k): i for i, k in enumerate(kfs)}
+            tree = []
             for a_i, a in enumerate(kfs):
-                # covisibility (light), spanning tree (green), loop (red)
                 for b in ms.get_covisible(int(a), 10):
                     if int(b) in idx_of and b > a:
-                        b_i = idx_of[int(b)]
-                        ax.plot(*zip(centers[a_i], centers[b_i]), c="0.8", lw=0.4)
+                        _line(rgb, centers[a_i], centers[idx_of[int(b)]], COVIS_RGB)
                 p = int(ms.parent[a])
                 if p in idx_of:
-                    ax.plot(*zip(centers[a_i], centers[idx_of[p]]), c="g", lw=1.0)
+                    tree.append((a_i, idx_of[p]))
+            for a_i, b_i in tree:          # over the covisibility edges
+                _line(rgb, centers[a_i], centers[b_i], TREE_RGB)
             for (a, b) in ms.loop_edges:
                 if a in idx_of and b in idx_of:
-                    ax.plot(*zip(centers[idx_of[a]], centers[idx_of[b]]), c="r", lw=1.5)
-        ax.view_init(elev=elev, azim=azim)
-        ax.set_box_aspect([1, 1, 1])
-        if path:
-            fig.savefig(path, dpi=110, bbox_inches="tight")
-            plt.close(fig)
-            return path
-        return fig
+                    _line(rgb, centers[idx_of[a]], centers[idx_of[b]], LOOP_RGB)
+        _dots(rgb, centers, KF_RGB, r=2)
+        return _finish(rgb, path)
 
 
 class TrajectoryPlotter:
     @staticmethod
+    def projector(est_xyz: np.ndarray, gt_xyz: Optional[np.ndarray] = None):
+        """The map from trajectory points (n, 3) to pixels (n, 2) of the
+        plot: x to the right, z up, one scale, fitted to both curves."""
+        xz = np.concatenate([np.asarray(est_xyz)[:, [0, 2]]]
+                            + ([np.asarray(gt_xyz)[:, [0, 2]]] if gt_xyz is not None else []))
+        to_px = _fit(xz, PLOT_SIZE)
+        return lambda p: to_px(np.asarray(p, np.float64).reshape(-1, 3)[:, [0, 2]])
+
+    @staticmethod
     def plot(est_xyz: np.ndarray, gt_xyz: Optional[np.ndarray] = None,
              path: Optional[str] = None):
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        fig, ax = plt.subplots(figsize=(8, 6))
-        ax.plot(est_xyz[:, 0], est_xyz[:, 2], "b-", label="estimate")
+        """x against z of the estimate (blue) and the ground truth (black,
+        dashed), at equal scale, with a legend and the axes' extents in
+        metres; an (H, W, 3) uint8 picture, or written as a PNG at `path`."""
+        from .bitmap_font import draw_text
+        w, h = PLOT_SIZE
+        rgb = np.full((h, w, 3), 255, np.uint8)
+        proj = TrajectoryPlotter.projector(est_xyz, gt_xyz)
+        if gt_xyz is not None and len(gt_xyz):
+            _polyline(rgb, proj(gt_xyz), GT_RGB, dash=4)
+        if len(est_xyz):
+            _polyline(rgb, proj(est_xyz), EST_RGB)
+        both = np.concatenate([np.asarray(est_xyz)]
+                              + ([np.asarray(gt_xyz)] if gt_xyz is not None else []))
+        lo, hi = both.min(axis=0), both.max(axis=0)
+        draw_text(rgb, 4, h - 10, f"X (M) {lo[0]:.2f} TO {hi[0]:.2f}", GT_RGB)
+        draw_text(rgb, 4, 4, f"Z (M) {lo[2]:.2f} TO {hi[2]:.2f}", GT_RGB)
+        draw_text(rgb, w - 100, 4, "ESTIMATE", EST_RGB)
         if gt_xyz is not None:
-            ax.plot(gt_xyz[:, 0], gt_xyz[:, 2], "k--", label="ground truth")
-        ax.set_xlabel("x [m]")
-        ax.set_ylabel("z [m]")
-        ax.axis("equal")
-        ax.legend()
-        if path:
-            fig.savefig(path, dpi=110, bbox_inches="tight")
-            plt.close(fig)
-            return path
-        return fig
+            draw_text(rgb, w - 100, 14, "GROUND TRUTH", GT_RGB)
+        return _finish(rgb, path)

@@ -11,8 +11,8 @@ live on a host without a display — and a small status.json for dashboards.
 A copy of orb_slam2_detailed_comments_tpu/viz/stream.py, but for the frame
 image: it is written as an RGB PNG through this package's own codec
 (io/png.py), never through matplotlib and never as the JAX package's PPM
-fallback, so it needs no imaging library. The map render still needs
-matplotlib (viz/drawers.MapDrawer).
+fallback, and the map render is drawn in numpy (viz/drawers.MapDrawer), so
+it needs no imaging or plotting library.
 """
 from __future__ import annotations
 

@@ -42,7 +42,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
-import importlib.util
 import json
 import multiprocessing
 import os
@@ -62,18 +61,9 @@ FPS_BUDGET = 10.0     # KITTI stereo's camera rate (BASELINE.md)
 GEOMETRY = dict(width=1241, height=376, features=2000)
 
 
-def _synthetic_world():
-    """tests/synthetic_world.py, loaded by path (tests is not a package on
-    every machine)."""
-    spec = importlib.util.spec_from_file_location("synthetic_world",
-                                                  REPO / "tests" / "synthetic_world.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _world(radius: float, seed: int):
-    sw = _synthetic_world()
+    from orb_slam2_detailed_comments_tpu_torch.examples._driver import load_synthetic_world
+    sw = load_synthetic_world()
     width, height = GEOMETRY["width"], GEOMETRY["height"]
     fx = 180.0 * (width / 320.0)
     return sw, sw.CylinderWorld(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,
