@@ -62,6 +62,18 @@ def _world(width, height, radius, seed):
     return world, radius / 100.0 * 1.2
 
 
+def circuit_poses(n_frames, radius, laps=2.0, path_ratio=0.5, trajectory="loop"):
+    """The true Tcw of every frame: the camera circles at path_ratio *
+    radius inside the canyon (laps of it, the last overlapping the first),
+    or synthetic_world.route_trajectory's route."""
+    sw = load_synthetic_world()
+    if trajectory == "route":
+        return sw.route_trajectory(n_frames, radius)
+    overlap = max(int(n_frames * 0.12 / max(laps, 1.0)), 12)
+    return sw.loop_trajectory(n_frames, path_radius=path_ratio * radius, laps=laps,
+                              overlap=overlap)
+
+
 def _frame_images(world, Tcw, sensor, baseline, kidnapped):
     """One frame's images: (left, right) for stereo (the right camera
     offset by the baseline along the camera x-axis: Tcw_r = Tb @ Tcw),
@@ -130,16 +142,9 @@ def circuit(n_frames=1000, width=640, height=480, features=2000, radius=50.0,
     from orb_slam2_detailed_comments_tpu_torch.utils import counters
     from orb_slam2_detailed_comments_tpu_torch.utils.config import OrbConfig, SlamConfig
 
-    sw = load_synthetic_world()
-    # the camera circles at path_ratio*radius inside the canyon
     world, baseline = _world(width, height, radius, seed)
     fx = world.fx
-    if trajectory == "route":
-        poses = sw.route_trajectory(n_frames, radius)
-    else:
-        overlap = max(int(n_frames * 0.12 / max(laps, 1.0)), 12)
-        poses = sw.loop_trajectory(n_frames, path_radius=path_ratio * radius, laps=laps,
-                                   overlap=overlap)
+    poses = circuit_poses(n_frames, radius, laps, path_ratio, trajectory)
     kp_cap = 1 << int(np.ceil(np.log2(features + 1)))
     cfg = SlamConfig(
         camera=PinholeCamera(fx=fx, fy=fx, cx=width / 2, cy=height / 2, width=width,

@@ -13,11 +13,14 @@ with the JAX package's examples/kitti_class_benchmark.py, on the CPU.
     features, radius 25, LAPS of a lap so that a frame turns 1.4 deg): the
     same tracked share, keyframes within KF_TOL, the exported ATE within
     ATE_RTOL or ATE_ATOL_M, and the same result keys but the port's
-    ms_per_frame (median and p90 of the host ms a frame).
-The JAX run is the JAX driver's command line in a process of its own (its
-JSON line read back), started before the port's run so that its compiles
-overlap it; it takes the fused path (ORB_FUSED_TRACK=1, the port's
-default) in the exact modes, as tests/torch_parity.py runs the JAX package.
+    ms_per_frame (median and p90 of the host ms a frame); and frame by
+    frame, both traced by tools/circuit_trace.py: the same tracking states,
+    paths, keyframe decisions, live keyframes and reference keyframes, the
+    camera centres within CENTRE_ATOL_M.
+The JAX run is tests/torch_parity.py's circuit_trace mode in a process of
+its own (the JAX driver's run() with the fused path on, ORB_FUSED_TRACK=1,
+the port's default, in the exact modes; its JSON line read back), started
+before the port's run so that its compiles overlap it.
 """
 import importlib.util
 import json
@@ -34,11 +37,16 @@ from orb_slam2_detailed_comments_tpu_torch.examples import kitti_class_benchmark
 from orb_slam2_detailed_comments_tpu_torch.frontend.tracking import TrackingState
 
 from synthetic_world import loop_trajectory
-from torch_parity import JAX_EXACT_MODES
 
 REPO = Path(__file__).resolve().parents[1]
 FRAMES, LAPS = 8, 0.004
+RUN_ARGS = ["--frames", str(FRAMES), "--width", "320", "--height", "240", "--features", "500",
+            "--radius", "25", "--laps", str(LAPS)]
 KF_TOL, ATE_RTOL, ATE_ATOL_M = 1, 0.10, 0.002
+# the live camera centres of the two runs, frame by frame: at most the ATE's
+# absolute limit apart (the two part by at most 0.81 mm in 8 frames on the
+# CPU: pyramid ulps flip a few matches from frame 1 on)
+CENTRE_ATOL_M = ATE_ATOL_M
 JAX_TIMEOUT_S = 600
 
 
@@ -51,6 +59,17 @@ def _jax_module():
 
 
 JK = _jax_module()
+
+
+def _trace_module():
+    spec = importlib.util.spec_from_file_location("circuit_trace",
+                                                  REPO / "tools" / "circuit_trace.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CT = _trace_module()
 
 
 class _Voc:
@@ -153,26 +172,31 @@ def test_render_workers_render_the_same_frames():
         assert all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
-def _start_jax_run():
-    """The JAX driver's command line for the short run, started in a
-    process of its own (JAX on the CPU, the fused path, the exact modes),
-    so that its compiles overlap the port's run."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", ORB_FUSED_TRACK="1", **JAX_EXACT_MODES)
-    cmd = [sys.executable, str(REPO / "examples" / "kitti_class_benchmark.py"),
-           "--frames", str(FRAMES), "--width", "320", "--height", "240", "--features", "500",
-           "--radius", "25", "--laps", str(LAPS)]
+def _start_jax_run(trace):
+    """The JAX driver's short run, traced frame by frame into `trace`
+    (tests/torch_parity.py circuit_trace: JAX on the CPU, the fused path,
+    the exact modes), started in a process of its own so that its compiles
+    overlap the port's run; its last line is the driver's result dict."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    cmd = [sys.executable, str(REPO / "tests" / "torch_parity.py"), "circuit_trace",
+           *RUN_ARGS, "--out", str(trace)]
     return subprocess.Popen(cmd, env=env, cwd=str(REPO), stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
-def test_short_stereo_run_matches_jax():
+def test_short_stereo_run_matches_jax(tmp_path):
     import torch
-    jax_proc = _start_jax_run()
+    from orb_slam2_detailed_comments_tpu_torch import system as TS
+    jax_proc = _start_jax_run(tmp_path / "jax.jsonl")
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 4))
+    tracer = CT.CircuitTracer(tmp_path / "port.jsonl")
     try:
-        ours = TK.run(FRAMES, 320, 240, 500, radius=25.0, laps=LAPS, progress=False, device="cpu")
+        with tracer.patch(TS.System):
+            ours = TK.run(FRAMES, 320, 240, 500, radius=25.0, laps=LAPS, progress=False,
+                          device="cpu")
     finally:
+        tracer.close()
         torch.set_num_threads(threads)
         out, err = jax_proc.communicate(timeout=JAX_TIMEOUT_S)
     assert jax_proc.returncode == 0, err[-2000:]
@@ -187,3 +211,14 @@ def test_short_stereo_run_matches_jax():
     for k in ("frames", "resolution", "sensor", "trajectory", "features", "travel_m",
               "lost_streaks", "loops_closed", "kfs_live_at_loops"):
         assert ours[k] == ref[k], k
+    # frame by frame: the same states, tracking paths and keyframe decisions,
+    # the camera centres within CENTRE_ATOL_M
+    _, jax_frames, _ = CT.read_trace(tmp_path / "jax.jsonl")
+    _, port_frames, _ = CT.read_trace(tmp_path / "port.jsonl")
+    assert len(jax_frames) == len(port_frames) == FRAMES
+    for a, b in zip(jax_frames, port_frames):
+        for k in ("state", "path", "kf_made", "kfs_live", "ref_kf"):
+            assert a[k] == b[k], (a["frame"], k, a[k], b[k])
+    parted = CT.compare_traces(jax_frames, port_frames)
+    assert parted["state_or_path"] is parted["keyframe"] is None
+    assert np.nanmax(parted["centre_mm"]) <= 1e3 * CENTRE_ATOL_M, parted["centre_mm"]

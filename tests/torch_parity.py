@@ -12,6 +12,7 @@ flat-image case is tested with the JAX package's own pyramid levels
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 
 import numpy as np
@@ -410,67 +411,271 @@ def _xla_levels():
     TM.predict_scale_level = predict_scale_level
 
 
-def replay_local_mapper(sensor, first=1, last=12, xla_levels=False):
-    """The JAX package's System on chip_smoke.py's System phase for
-    `sensor` (as jax_system_anchor), with its LocalMapper calls first..last
-    replayed stage by stage through the port's LocalMapper on the CPU: each
-    port stage starts from the JAX state before that stage and ends held
-    against the JAX state after it. Prints, per call and stage, the map
-    points live in one package only, the keypoint associations that differ
-    and the largest point distance. With `xla_levels` the port predicts
-    scale levels with XLA's log (_xla_levels). About 3 min and 3 GB on the
-    CPU."""
-    from orb_slam2_detailed_comments_tpu.system import System
+def _ba_spread(port_ms, jax_ms, tcfg, jm, recent, kf, start, jax_start):
+    """How far apart a local BA's results lie: the port's against the JAX
+    package's (median point distance, largest keyframe-centre distance);
+    then, as the scale of float rounding alone, each package's against its
+    own from the same state with every point moved by one float32 ulp, and
+    the port's against its own with the window's edges in another order
+    (largest and median point distance). `start` and `jax_start` are the
+    two packages' states before the stage."""
+    import torch
+    from orb_slam2_detailed_comments_tpu.backend.local_mapping import LocalMapper as JaxMapper
+    from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import LocalMapper
+
+    def dist(a, b):
+        live = a.mp_valid & b.mp_valid
+        d = np.linalg.norm(a.mp_pos[live] - b.mp_pos[live], axis=1)
+        return f"largest {d.max():.1e}, median {np.median(d):.1e}"
+
+    def nudged(ms):
+        ms.mp_pos = np.nextafter(ms.mp_pos, np.float32(np.inf)).astype(np.float32)
+        return ms
+
+    def port_ba(ms, permute=False):
+        port = LocalMapper(tcfg, ms, monocular=jm.monocular, device="cpu")
+        port.recent_points = list(recent)
+        build = port._build_local_ba
+
+        def permuted_build(k):
+            built = build(k)
+            E = built["E"]
+            perm = np.random.default_rng(0).permutation(E)
+            tp = torch.from_numpy(perm)
+            prob = built["prob"]
+            built["prob"] = prob._replace(**{
+                f: torch.cat([getattr(prob, f)[:E][tp], getattr(prob, f)[E:]])
+                for f in ("edge_cam", "edge_point", "edge_obs", "edge_octave", "edge_valid")})
+            built["e_cam"], built["e_pt"] = built["e_cam"][perm], built["e_pt"][perm]
+            return built
+        if permute:
+            port._build_local_ba = permuted_build
+        port.local_ba(kf)
+        return port.map
+
+    jax_nudged = JaxMapper(jm.config, nudged(jax_start), monocular=jm.monocular)
+    jax_nudged.recent_points = list(recent)
+    jax_nudged.local_ba(kf)
+    kfs = np.nonzero(port_ms.kf_valid & jax_ms.kf_valid)[0]
+
+    def centres(ms):
+        T = ms.kf_Tcw[kfs].astype(np.float64)
+        return -np.einsum("nji,nj->ni", T[:, :3, :3], T[:, :3, 3])
+    dc = np.linalg.norm(centres(port_ms) - centres(jax_ms), axis=1)
+    return (f"port against JAX: {dist(port_ms, jax_ms)}, keyframe centres {dc.max():.1e}; "
+            f"JAX against itself one ulp away: {dist(jax_nudged.map, jax_ms)}; the port "
+            f"against itself one ulp away: {dist(port_ba(nudged(copy.deepcopy(start))), port_ms)}"
+            f", with its edges permuted: {dist(port_ba(copy.deepcopy(start), True), port_ms)}")
+
+
+def _replay_mapper(jm, first, last):
+    """Make the JAX LocalMapper `jm` replay its on_new_keyframe calls
+    first..last stage by stage through the port's LocalMapper on the CPU:
+    each port stage starts from the JAX state before that stage and ends
+    held against the JAX state after it. Prints, per call and stage, the
+    map points live in one package only, the keypoint associations that
+    differ and the largest point distance. Returns the count of calls."""
     from orb_slam2_detailed_comments_tpu_torch.backend.local_mapping import LocalMapper
     from orb_slam2_detailed_comments_tpu_torch.interop import (map_store_from_jax,
                                                                slam_config_from_jax)
 
+    tcfg = slam_config_from_jax(jm.config)
+    on_new_keyframe, n_call = jm.on_new_keyframe, [0]
+
+    def replay(kf, run_ba=True):
+        n_call[0] += 1
+        if not first <= n_call[0] <= last:
+            return on_new_keyframe(kf, run_ba)
+        jm.kf_counter += 1
+        fresh = jm.map.kf_mp[kf]
+        fresh = fresh[fresh >= 0]
+        jm.recent_points.extend(int(m) for m in fresh[jm.map.mp_first_kf[fresh] == kf])
+        ba = run_ba and jm.map.n_keyframes() > 2
+        stages = [("culling", "_map_point_culling"),
+                  ("triangulation", "_create_new_map_points"),
+                  ("fusion", "_search_in_neighbors")] + [("local BA", "local_ba")] * ba \
+            + [("keyframe culling", "_keyframe_culling")]
+        line = []
+        for name, method in stages:
+            before, recent = map_store_from_jax(jm.map), list(jm.recent_points)
+            start = (copy.deepcopy(before), copy.deepcopy(jm.map)) if method == "local_ba" \
+                else None
+            getattr(jm, method)(kf)
+            after = map_store_from_jax(jm.map)
+            port = LocalMapper(tcfg, before, monocular=jm.monocular, device="cpu")
+            port.recent_points = recent
+            getattr(port, method)(kf)
+            t = port.map
+            live = t.mp_valid & after.mp_valid
+            dx = np.linalg.norm(t.mp_pos[live] - after.mp_pos[live], axis=1)
+            line.append(f"{name} {int((t.mp_valid != after.mp_valid).sum())}/"
+                        f"{int((t.kf_mp != after.kf_mp).sum())}/"
+                        f"{dx.max() if dx.size else 0.0:.1e}")
+            if method == "local_ba" and dx.size:
+                line[-1] += " (" + _ba_spread(t, after, tcfg, jm, recent, kf, *start) + ")"
+        print(f"call {n_call[0]} (keyframe {kf}), points live in one package only/"
+              f"associations that differ/largest point distance (m): " + "; ".join(line),
+              flush=True)
+        if jm.loop_closer is not None:
+            jm.loop_closer.on_new_keyframe(kf)
+
+    jm.on_new_keyframe = replay
+    return n_call
+
+
+def replay_local_mapper(sensor, first=1, last=12, xla_levels=False):
+    """The JAX package's System on chip_smoke.py's System phase for
+    `sensor` (as jax_system_anchor), with its LocalMapper calls first..last
+    replayed through the port's (_replay_mapper). With `xla_levels` the
+    port predicts scale levels with XLA's log (_xla_levels). About 3 min
+    and 3 GB on the CPU."""
+    from orb_slam2_detailed_comments_tpu.system import System
+
     if xla_levels:
         _xla_levels()
     chip_smoke, poses, frames, cfg, sensor_enum = _sequence(sensor)
-    tcfg = slam_config_from_jax(cfg)
     entry = {"stereo": "track_stereo", "rgbd": "track_rgbd", "mono": "track_monocular"}[sensor]
     with _jax_fused_exact():
         slam = System(cfg, sensor_enum, enable_loop_closing=False)
-        jm = slam.local_mapper
-        on_new_keyframe, n_call = jm.on_new_keyframe, [0]
-
-        def replay(kf, run_ba=True):
-            n_call[0] += 1
-            if not first <= n_call[0] <= last:
-                return on_new_keyframe(kf, run_ba)
-            jm.kf_counter += 1
-            fresh = jm.map.kf_mp[kf]
-            fresh = fresh[fresh >= 0]
-            jm.recent_points.extend(int(m) for m in fresh[jm.map.mp_first_kf[fresh] == kf])
-            ba = run_ba and jm.map.n_keyframes() > 2
-            stages = [("culling", "_map_point_culling"),
-                      ("triangulation", "_create_new_map_points"),
-                      ("fusion", "_search_in_neighbors")] + [("local BA", "local_ba")] * ba \
-                + [("keyframe culling", "_keyframe_culling")]
-            line = []
-            for name, method in stages:
-                before, recent = map_store_from_jax(jm.map), list(jm.recent_points)
-                getattr(jm, method)(kf)
-                after = map_store_from_jax(jm.map)
-                port = LocalMapper(tcfg, before, monocular=sensor == "mono", device="cpu")
-                port.recent_points = recent
-                getattr(port, method)(kf)
-                t = port.map
-                live = t.mp_valid & after.mp_valid
-                dx = np.linalg.norm(t.mp_pos[live] - after.mp_pos[live], axis=1)
-                line.append(f"{name} {int((t.mp_valid != after.mp_valid).sum())}/"
-                            f"{int((t.kf_mp != after.kf_mp).sum())}/"
-                            f"{dx.max() if dx.size else 0.0:.1e}")
-            print(f"call {n_call[0]} (keyframe {kf}), points live in one package only/"
-                  f"associations that differ/largest point distance (m): " + "; ".join(line),
-                  flush=True)
-
-        jm.on_new_keyframe = replay
+        n_call = _replay_mapper(slam.local_mapper, first, last)
         for i, args in enumerate(frames):
             getattr(slam, entry)(*args, i / chip_smoke.TRACK_SEQS[sensor]["fps"])
             if n_call[0] >= last:
                 break
+
+
+def _circuit_trace_module():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "circuit_trace.py"
+    spec = importlib.util.spec_from_file_location("circuit_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_circuit_trace(argv):
+    """The JAX package's examples/kitti_class_benchmark.py run() on the CPU,
+    with the fused path on in the exact modes and the tracker's stage lines
+    on (ORB_TRACK_DEBUG), traced frame by frame into `--out` by
+    tools/circuit_trace.py's tracer: the JAX side of `circuit_trace.py
+    --compare`. Takes circuit_trace.py's run arguments (--frames ...
+    --out FILE --stop-after N --noise SEED); every
+    DeviceKeyframeStore._grow (ROADMAP.md known fault 1) is an event of
+    its frame, with the keyframes whose rows it renumbered. With --replay
+    FIRST LAST the mapper's calls FIRST..LAST are replayed stage by stage
+    through the port's (_replay_mapper) and the run stops after them;
+    with --xla-levels the port predicts scale levels with XLA's log there.
+    Returns the run's result dict (None when stopped). Run (a) took 3.4 h
+    to frame 816 on a shared 8-core CPU."""
+    import argparse
+    import importlib.util
+    from pathlib import Path
+    import jax
+    from orb_slam2_detailed_comments_tpu import system as JS
+    from orb_slam2_detailed_comments_tpu.backend import device_kf as JDK
+    from orb_slam2_detailed_comments_tpu.frontend import tracking as JT
+
+    ct = _circuit_trace_module()
+    ap = argparse.ArgumentParser()
+    ct.add_run_arguments(ap)
+    ap.add_argument("--replay", nargs=2, type=int, metavar=("FIRST", "LAST"),
+                    help="replay the mapper's calls FIRST..LAST through the port's "
+                         "(_replay_mapper) and stop after them")
+    ap.add_argument("--xla-levels", action="store_true",
+                    help="the port's replayed stages predict scale levels with XLA's log")
+    args = ap.parse_args(argv)
+    if args.xla_levels:
+        _xla_levels()
+    path = Path(__file__).resolve().parents[1] / "examples" / "kitti_class_benchmark.py"
+    spec = importlib.util.spec_from_file_location("jax_kitti_class_benchmark", path)
+    driver = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(driver)
+    meta = dict(vars(args), package="orb_slam2_detailed_comments_tpu", jax=jax.__version__,
+                numpy=np.__version__)
+    tracer = ct.CircuitTracer(args.out, args.stop_after, args.noise,
+                              _chip_smoke().PERTURB_GREY, meta)
+    grow = JDK.DeviceKeyframeStore._grow
+
+    def traced_grow(store, ms):
+        old, cap = dict(store.kf_row), store.C
+        grow(store, ms)
+        moved = {k: (r, store.kf_row.get(k, -1)) for k, r in old.items()
+                 if store.kf_row.get(k, -1) != r}
+        tracer.event(f"_grow: capacity {cap} -> {store.C}, {len(old)} rows -> "
+                     f"{len(store.kf_row)}; keyframe: (old row, new row) {moved}")
+
+    dbg, result, init = JT._DBG, None, JS.System.__init__
+
+    def replaying_init(slam, *a, **k):
+        init(slam, *a, **k)
+        first, last = args.replay
+        n_call = _replay_mapper(slam.local_mapper, first, last)
+        replay = slam.local_mapper.on_new_keyframe
+
+        def stop_after_last(kf, run_ba=True):
+            replay(kf, run_ba)
+            if n_call[0] >= last:
+                raise ct.StopTrace
+        slam.local_mapper.on_new_keyframe = stop_after_last
+
+    JT._DBG, JDK.DeviceKeyframeStore._grow = True, traced_grow
+    if args.replay:
+        JS.System.__init__ = replaying_init
+    try:
+        with _jax_fused_exact(), tracer.patch(JS.System):
+            result = driver.run(**ct.run_kwargs(args))
+    except ct.StopTrace:
+        pass
+    finally:
+        JT._DBG, JDK.DeviceKeyframeStore._grow, JS.System.__init__ = dbg, grow, init
+        tracer.close(result)
+    return result
+
+
+def solve_ba_problem(path):
+    """A local-BA problem saved by tools/circuit_trace.py --dump-ba, solved
+    again by the JAX package's local_bundle_adjustment and by the port's,
+    both on the CPU, beside the result the run merged: for the window's
+    free keyframes, the largest centre move from the start in each
+    solution, the largest centre distance between the solutions, and the
+    edges each keeps as inliers."""
+    import jax.numpy as jnp
+    import torch
+    from orb_slam2_detailed_comments_tpu.geometry.camera import PinholeCamera as JaxCamera
+    from orb_slam2_detailed_comments_tpu.optim import local_ba as JB
+    from orb_slam2_detailed_comments_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_detailed_comments_tpu_torch.optim import local_ba as TB
+
+    d = np.load(path)
+    fields = {k[len("prob_"):]: d[k] for k in d.files if k.startswith("prob_")}
+    fx, fy, cx, cy, bf, w, h = d["camera"]
+    cam_kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, bf=bf, width=int(w), height=int(h))
+    jax_out = JB.local_bundle_adjustment(
+        JB.BAProblem(**{k: jnp.asarray(v) for k, v in fields.items()}), JaxCamera(**cam_kw),
+        jnp.asarray(d["inv_sigma2"]))
+    port_out = TB.local_bundle_adjustment(
+        TB.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()}),
+        PinholeCamera(**cam_kw), torch.from_numpy(d["inv_sigma2"]))
+    free = np.nonzero(d["cam_free"][:len(d["cams"])])[0]
+
+    def centres(T):
+        T = np.asarray(T, np.float64)[free]
+        return -np.einsum("nji,nj->ni", T[:, :3, :3], T[:, :3, 3])
+    c0 = centres(fields["cam_Tcw"])
+    sols = {"the run": (d["new_cams"], d["inlier"]),
+            "JAX (CPU)": tuple(np.asarray(a) for a in (jax_out[0], jax_out[2])),
+            "port (CPU)": tuple(a.numpy() for a in (port_out[0], port_out[2]))}
+    E = int(d["E"])
+    line = [f"{path}: {len(d['cams'])} cameras ({free.size} free), {E} edges"]
+    for name, (cams, inl) in sols.items():
+        move = np.linalg.norm(centres(cams) - c0, axis=1)
+        line.append(f"{name}: largest keyframe move {move.max():.4f} m (keyframe "
+                    f"{int(d['cams'][free[np.argmax(move)]])}), inliers {int(inl[:E].sum())}")
+    for a, b in (("JAX (CPU)", "the run"), ("JAX (CPU)", "port (CPU)")):
+        dist = np.linalg.norm(centres(sols[a][0]) - centres(sols[b][0]), axis=1)
+        line.append(f"{a} against {b}: keyframe centres up to {dist.max():.4f} m apart")
+    return "\n  ".join(line)
 
 
 if __name__ == "__main__":
@@ -488,12 +693,31 @@ if __name__ == "__main__":
     # JAX_PLATFORMS=cpu python tests/torch_parity.py run_slam [NAME ...] [noise<seed> ...]:
     #     jax_run_slam_anchor (chip_smoke.py [20]'s sequences, or each under
     #     each perturbation)
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py circuit_trace --out FILE [--frames N ...]
+    #     [--replay FIRST LAST [--xla-levels]]: jax_circuit_trace; the last line is the
+    #     run's result dict
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py port_circuit_trace --out FILE [...]:
+    #     the port's tools/circuit_trace.py on the CPU with XLA's log levels
+    # JAX_PLATFORMS=cpu python tests/torch_parity.py ba_problem FILE ...: solve_ba_problem
+    import json
     import sys
     from pathlib import Path
     import jax
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     jax.config.update("jax_platforms", "cpu")
     args = sys.argv[1:]
+    if args[:1] == ["circuit_trace"]:
+        print(json.dumps(jax_circuit_trace(args[1:])), flush=True)
+        sys.exit(0)
+    if args[:1] == ["ba_problem"]:
+        for path in args[1:]:
+            print(solve_ba_problem(path), flush=True)
+        sys.exit(0)
+    if args[:1] == ["port_circuit_trace"]:
+        # the port's circuit_trace.py run on the CPU with its scale levels
+        # predicted by XLA's log (_xla_levels, ROADMAP.md known fault 8)
+        _xla_levels()
+        sys.exit(_circuit_trace_module().main([*args[1:], "--device", "cpu"]))
     if args[:1] == ["run_slam"]:
         perturbs = [a for a in args[1:] if a.startswith("noise")]
         for name in [a for a in args[1:] if a not in perturbs] or ["kitti-stereo", "kitti-mono",
